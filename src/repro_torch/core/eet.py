@@ -1,0 +1,54 @@
+"""Expected Execution Time (EET) tables and actual-runtime sampling.
+
+Counterpart of ``repro/core/eet.py``: the paper's Table I, the Sec. VI-A
+power profiles and the AWS scenario tables, copied so that the port
+imports nothing of the JAX package. Randomness comes from a
+``numpy.random.Generator``; it cannot reproduce JAX's threefry streams,
+so sampling is held to the reference in distribution only.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+# --- Table I of the paper (4 task types x 4 machine types, seconds) ---------
+TABLE_I = np.array(
+    [
+        [2.238, 1.696, 4.359, 0.736],
+        [2.256, 1.828, 4.377, 0.868],
+        [2.076, 1.531, 5.096, 0.865],
+        [2.092, 1.622, 4.388, 0.913],
+    ],
+    dtype=np.float32,
+)
+
+# Machine power profiles from Sec. VI-A, in units of the unit power ``p``.
+P_DYN = np.array([1.6, 3.0, 1.8, 1.5], dtype=np.float32)
+P_IDLE = np.full(4, 0.05, dtype=np.float32)
+
+# --- AWS scenario (Sec. VI-A, scenario i) ------------------------------------
+# Rows: face recognition, speech recognition. Cols: t2.xlarge (CPU),
+# g3s.xlarge (GPU). Mean end-to-end inference latencies (s); powers are
+# the TDPs quoted in the paper (120 W, 300 W).
+AWS_EET = np.array(
+    [
+        [0.570, 0.270],
+        [3.380, 0.980],
+    ],
+    dtype=np.float32,
+)
+AWS_P_DYN = np.array([120.0, 300.0], dtype=np.float32)
+AWS_P_IDLE = np.array([6.0, 15.0], dtype=np.float32)
+
+
+def sample_actual_exec(rng: np.random.Generator, eet, task_type,
+                       cv_run: float = 0.1) -> np.ndarray:
+    """Per-task actual runtimes on every machine, as float32 (N, M).
+
+    Runtime of task k (type i) on machine j ~ Gamma with mean EET[i, j]
+    and CV ``cv_run``: shape ``1/cv^2``, scale ``EET * cv^2``.
+    """
+    eet = np.asarray(eet, np.float32)
+    means = eet[np.asarray(task_type)]                       # (N, M)
+    shape = 1.0 / cv_run**2
+    draw = rng.standard_gamma(shape, means.shape, dtype=np.float32)
+    return (draw * (means * np.float32(cv_run**2))).astype(np.float32)

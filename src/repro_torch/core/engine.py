@@ -1,0 +1,329 @@
+"""Discrete-event simulation engine for the HEC system, batched, in PyTorch.
+
+Counterpart of ``repro/core/engine.py`` for the flat, single-site system
+(no faults, dispatch, network or observers). Semantics follow Sec. III
+of the paper and the reference op for op:
+
+  * mapping events fire on task arrival and task completion, plus a
+    progress event at the earliest pending deadline;
+  * machines serve their bounded local queues FCFS;
+  * a running task that passes its deadline is killed at the deadline;
+  * a queued task whose deadline passed before it starts is dropped with
+    zero energy.
+
+The reference runs one ``lax.while_loop`` per trace and ``vmap``s it; the
+port runs one Python loop over a batch of B traces. Each iteration runs
+the stages finalize -> admit -> map -> start on every replicate, then
+keeps the new state only where the replicate is still active (its next
+event time is finite and it has taken fewer than ``8 N + 64`` steps):
+``where(active, new, old)`` on every field, ``steps`` included, so a
+finished replicate stays frozen as under ``vmap``. The host reads
+``active.any()`` once every :data:`CHECK_EVERY` iterations; the extra
+iterations are harmless because inactive replicates are frozen.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.core import fairness
+from repro_torch.core.device import resolve_device
+from repro_torch.core.policy import MachineView
+from repro_torch.core.policy.base import set_masked
+from repro_torch.core.types import (
+    CANCELLED,
+    COMPLETED,
+    MISSED,
+    PENDING,
+    QUEUED,
+    RUNNING,
+    UNARRIVED,
+    Metrics,
+    SimState,
+    SystemArrays,
+    Trace,
+)
+
+INF = float("inf")
+
+#: Iterations between two host reads of "is any replicate still active".
+CHECK_EVERY = 32
+
+#: Batched loop iterations run since the last reset. Each iteration calls
+#: the map stage's policy once for the whole batch.
+COUNTS = {"loop_iterations": 0}
+
+
+def _count_by_type(counts, task_type, mask):
+    """``counts[b, task_type[b, k]] += mask[b, k]`` (the reference's
+    ``segment_sum`` over types), as a new tensor."""
+    return counts.scatter_add(1, task_type, mask.to(counts.dtype))
+
+
+def _init_state(trace: Trace, n_machines: int, queue_size: int,
+                n_types: int) -> SimState:
+    B, n = trace.arrival.shape
+    M, Q, S = n_machines, queue_size, n_types
+    dev = trace.arrival.device
+    f32, i64 = torch.float32, torch.int64
+
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    return SimState(
+        now=full((B,), 0.0, f32),
+        status=full((B, n), UNARRIVED, i64),
+        run_task=full((B, M), -1, i64),
+        run_start=full((B, M), 0.0, f32),
+        run_end_act=full((B, M), INF, f32),
+        run_end_exp=full((B, M), 0.0, f32),
+        run_success=full((B, M), False, torch.bool),
+        queue=full((B, M, Q), -1, i64),
+        qlen=full((B, M), 0, i64),
+        busy_time=full((B, M), 0.0, f32),
+        e_dyn=full((B,), 0.0, f32),
+        e_wasted=full((B,), 0.0, f32),
+        completed=full((B, S), 0, i64),
+        missed=full((B, S), 0, i64),
+        cancelled=full((B, S), 0, i64),
+        arrived=full((B, S), 0, i64),
+        steps=full((B,), 0, i64),
+    )
+
+
+def _next_event_time(st: SimState, trace: Trace) -> torch.Tensor:
+    """(B,) earliest of: next arrival, next completion, earliest pending
+    deadline (the progress guard). ``inf`` when nothing is left."""
+    inf = torch.full((), INF, device=st.now.device)
+    t_arr = torch.where(st.status == UNARRIVED, trace.arrival, inf).amin(1)
+    t_comp = st.run_end_act.amin(1)
+    t_dead = torch.where(st.status == PENDING, trace.deadline, inf).amin(1)
+    return torch.minimum(torch.minimum(t_arr, t_comp), t_dead)
+
+
+# ---------------------------------------------------------------------------
+# Event stages. Each is a pure SimState -> SimState map over the batch.
+# ---------------------------------------------------------------------------
+def _stage_finalize(st: SimState, trace: Trace, sysarr: SystemArrays):
+    """Close out machines whose running task's actual end <= now."""
+    now = st.now[:, None]
+    done = (st.run_task >= 0) & (st.run_end_act <= now)
+    idx = torch.where(done, st.run_task, 0)
+    ttype = trace.task_type.gather(1, idx)
+    dur = torch.where(done, st.run_end_act - st.run_start, 0.0)
+    energy = sysarr.p_dyn * dur
+    ok = done & st.run_success
+    ko = done & ~st.run_success
+    status = set_masked(st.status, idx, done,
+                        torch.where(ok, COMPLETED, MISSED))
+    return st._replace(
+        status=status,
+        run_task=torch.where(done, -1, st.run_task),
+        run_end_act=torch.where(done, INF, st.run_end_act),
+        run_end_exp=torch.where(done, now, st.run_end_exp),
+        run_success=st.run_success & ~done,
+        completed=_count_by_type(st.completed, ttype, ok),
+        missed=_count_by_type(st.missed, ttype, ko),
+        e_dyn=st.e_dyn + energy.sum(1),
+        e_wasted=st.e_wasted + torch.where(ko, energy, 0.0).sum(1),
+        busy_time=st.busy_time + dur,
+    )
+
+
+def _stage_admit(st: SimState, trace: Trace):
+    """Admit newly-arrived tasks to the arriving queue."""
+    newly = (st.status == UNARRIVED) & (trace.arrival <= st.now[:, None])
+    return st._replace(
+        status=torch.where(newly, PENDING, st.status),
+        arrived=_count_by_type(st.arrived, trace.task_type, newly),
+    )
+
+
+def _map_action(st: SimState, trace: Trace, sysarr: SystemArrays,
+                select_fn: Callable, fairness_factor: float):
+    """The :class:`MapAction` of one batched mapping event (pre-apply)."""
+    suffered = fairness.suffered_types(st.completed, st.arrived,
+                                       fairness_factor)
+    now = st.now[:, None]
+    avail_base = torch.maximum(
+        torch.where(st.run_task >= 0, st.run_end_exp, now), now)
+    view = MachineView(avail_base=avail_base, queue=st.queue, qlen=st.qlen)
+    return select_fn(st.now, st.status == PENDING, trace.task_type,
+                     trace.deadline, view, sysarr, suffered)
+
+
+def _stage_map(st: SimState, trace: Trace, sysarr: SystemArrays,
+               select_fn: Callable, fairness_factor: float, n_types: int):
+    """Run the mapping policy and apply its action."""
+    action = _map_action(st, trace, sysarr, select_fn, fairness_factor)
+    return _apply_action(st, trace, action, n_types)
+
+
+def _apply_action(st: SimState, trace: Trace, action, n_types: int):
+    """Apply a MapAction: queue evictions, proactive drops, assignments."""
+    B, M, Q = st.queue.shape
+    n = st.status.shape[1]
+    # --- queue evictions (FELARE victims) -> CANCELLED ----------------------
+    victim = action.queue_drop & (st.queue >= 0)
+    vflat = victim.reshape(B, M * Q)
+    qflat = st.queue.reshape(B, M * Q)
+    status = set_masked(st.status, qflat, vflat, CANCELLED)
+    cancelled = _count_by_type(
+        st.cancelled, trace.task_type.gather(1, qflat.clamp(0, n - 1)), vflat)
+    # compact queues (stable: keep FCFS order of survivors)
+    keep = ~victim & (st.queue >= 0)
+    order = torch.argsort((~keep).to(torch.int64), dim=2, stable=True)
+    queue = torch.where(keep, st.queue, -1).gather(2, order)
+    qlen = keep.sum(dim=2)
+
+    # --- proactive drops from the arriving queue ----------------------------
+    drop = action.drop & (status == PENDING)
+    status = torch.where(drop, CANCELLED, status)
+    cancelled = _count_by_type(cancelled, trace.task_type, drop)
+
+    # --- assignments: append to queue tails ---------------------------------
+    assign = action.assign                                        # (B, M)
+    tstat = status.gather(1, assign.clamp(min=0))
+    ok = (assign >= 0) & (tstat == PENDING) & (qlen < Q)
+    slot = qlen.clamp(0, Q - 1)[:, :, None]
+    cur = queue.gather(2, slot)[:, :, 0]
+    queue = queue.scatter(2, slot, torch.where(ok, assign, cur)[:, :, None])
+    qlen = torch.where(ok, qlen + 1, qlen)
+    status = set_masked(status, assign, ok, QUEUED)
+    return st._replace(status=status, queue=queue, qlen=qlen,
+                       cancelled=cancelled)
+
+
+def _stage_start(st: SimState, trace: Trace, sysarr: SystemArrays):
+    """Idle machines pop their queue head (one pop per machine per event).
+
+    A popped task whose deadline already passed "runs" for zero time with
+    success=False and zero energy; the next iteration finalizes it.
+    """
+    B, M, Q = st.queue.shape
+    now = st.now[:, None]
+    can = (st.run_task < 0) & (st.qlen > 0)
+    head = torch.where(can, st.queue[:, :, 0], 0)
+    ttype = trace.task_type.gather(1, head)
+    dl = trace.deadline.gather(1, head)
+    e_act = trace.exec_actual.gather(1, head[:, None, :])[:, 0, :]
+    e_exp = sysarr.eet[ttype, torch.arange(M, device=head.device)]
+    dead_on_arrival = now >= dl
+    end_act = torch.where(dead_on_arrival, now, torch.minimum(now + e_act, dl))
+    success = ~dead_on_arrival & (now + e_act <= dl)
+    end_exp = torch.where(dead_on_arrival, now, torch.minimum(now + e_exp, dl))
+    shifted = torch.cat([st.queue[:, :, 1:], torch.full_like(
+        st.queue[:, :, :1], -1)], dim=2)
+    return st._replace(
+        status=set_masked(st.status, head, can, RUNNING),
+        run_task=torch.where(can, head, st.run_task),
+        run_start=torch.where(can, now, st.run_start),
+        run_end_act=torch.where(can, end_act, st.run_end_act),
+        run_end_exp=torch.where(can, end_exp, st.run_end_exp),
+        run_success=torch.where(can, success, st.run_success),
+        queue=torch.where(can[:, :, None], shifted, st.queue),
+        qlen=torch.where(can, st.qlen - 1, st.qlen),
+    )
+
+
+def _freeze(active: torch.Tensor, new: SimState, old: SimState) -> SimState:
+    """Keep ``new`` only on active replicates (``vmap``'s frozen carry)."""
+    def pick(a, b):
+        mask = active.reshape(active.shape + (1,) * (a.dim() - 1))
+        return torch.where(mask, a, b)
+
+    return SimState(*(pick(a, b) for a, b in zip(new, old)))
+
+
+def make_simulator(select_fn: Callable, sysarr: SystemArrays, *,
+                   queue_size: int, fairness_factor: float = 1.0,
+                   max_steps: int | None = None) -> Callable:
+    """Build ``simulate(trace) -> Metrics`` for one mapping policy.
+
+    ``trace`` is a batched :class:`Trace` (leaves (B, N) and (B, N, M))
+    on the device of ``sysarr``; the returned Metrics carry the leading
+    B. ``select_fn(now, pending, task_type, deadline, view, sysarr,
+    suffered)`` is any policy of :mod:`repro_torch.core.policy`.
+    """
+    S, M = sysarr.eet.shape
+
+    def simulate(trace: Trace) -> Metrics:
+        n = trace.arrival.shape[1]
+        cap = max_steps if max_steps is not None else 8 * n + 64
+        st = _init_state(trace, M, queue_size, S)
+        it = 0
+        while True:
+            t = _next_event_time(st, trace)
+            active = torch.isfinite(t) & (st.steps < cap)
+            if it % CHECK_EVERY == 0 and not bool(active.any()):
+                break
+            new = st._replace(now=torch.maximum(t, st.now))
+            new = _stage_finalize(new, trace, sysarr)
+            new = _stage_admit(new, trace)
+            new = _stage_map(new, trace, sysarr, select_fn, fairness_factor,
+                             S)
+            new = _stage_start(new, trace, sysarr)
+            new = new._replace(steps=new.steps + 1)
+            st = _freeze(active, new, st)
+            it += 1
+            COUNTS["loop_iterations"] += 1
+        makespan = st.now
+        e_idle = (sysarr.p_idle * (makespan[:, None] - st.busy_time)).sum(1)
+        return Metrics(
+            completed_by_type=st.completed,
+            missed_by_type=st.missed,
+            cancelled_by_type=st.cancelled,
+            arrived_by_type=st.arrived,
+            energy_dynamic=st.e_dyn,
+            energy_wasted=st.e_wasted,
+            energy_idle=e_idle,
+            makespan=makespan,
+        )
+
+    return simulate
+
+
+def _to_device(trace: Trace, device) -> Trace:
+    return Trace(
+        arrival=trace.arrival.to(device, torch.float32),
+        task_type=trace.task_type.to(device, torch.int64),
+        deadline=trace.deadline.to(device, torch.float32),
+        exec_actual=trace.exec_actual.to(device, torch.float32),
+    )
+
+
+def _resolve_policy(heuristic, use_fused_map: bool, use_fused_phase1: bool):
+    from repro_torch.core import policy
+
+    pol = policy.get(heuristic) if isinstance(heuristic, str) else heuristic
+    if use_fused_phase1:
+        pol = policy.with_fused_phase1(pol)
+    if use_fused_map:
+        pol = policy.with_fused_map(pol)
+    return pol
+
+
+def simulate_batch(traces: Trace, spec, heuristic, *, max_steps=None,
+                   use_fused_map: bool = False,
+                   use_fused_phase1: bool = False, device=None) -> Metrics:
+    """Simulate a batch of traces (leaves (B, N), (B, N, M)) under one
+    heuristic (a registered name or a policy object) on ``device``
+    (``None`` = the CUDA device). Returns Metrics with leading B."""
+    dev = resolve_device(device)
+    sim = make_simulator(
+        _resolve_policy(heuristic, use_fused_map, use_fused_phase1),
+        spec.as_torch(dev), queue_size=spec.queue_size,
+        fairness_factor=float(spec.fairness_factor), max_steps=max_steps)
+    return sim(_to_device(traces, dev))
+
+
+def simulate(trace: Trace, spec, heuristic, *, max_steps=None,
+             use_fused_map: bool = False, use_fused_phase1: bool = False,
+             device=None) -> Metrics:
+    """One trace (leaves (N,), (N, M)), one SystemSpec, one heuristic."""
+    batched = Trace(*(x[None] for x in trace))
+    m = simulate_batch(batched, spec, heuristic, max_steps=max_steps,
+                       use_fused_map=use_fused_map,
+                       use_fused_phase1=use_fused_phase1, device=device)
+    return Metrics(*(x[0] for x in m))

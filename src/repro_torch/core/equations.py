@@ -1,0 +1,120 @@
+"""The paper's closed-form scheduling math (Eqs. 1-4), in PyTorch.
+
+Counterpart of ``repro/core/equations.py``; every function broadcasts
+over leading dims. Decision arithmetic is float32 with one rounding per
+operation (no fused multiply-add), and a reduction over a small axis
+that feeds a decision is an explicit left-to-right sum
+(:func:`seq_sum`), so that the CPU and the card round alike. Means
+follow the reference's compiled form op for op: the sum times the
+float32 reciprocal of the count (:func:`seq_mean`).
+
+Feasibility: a pair is feasible iff ``s + e <= delta`` (see the JAX
+module's note on Algorithm 2).
+"""
+from __future__ import annotations
+
+import torch
+
+F32 = torch.float32
+
+BIG = 1e30  # "no value" sentinel of keys and scores (float32 1e30)
+
+
+def seq_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Left-to-right float sum over a small axis: ``((x0 + x1) + x2) ...``."""
+    x = x.movedim(dim, -1)
+    acc = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def seq_mean(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """:func:`seq_sum` times the float32 reciprocal of the count: the
+    reference's compiled mean turns its division by a constant into that
+    multiplication."""
+    return seq_sum(x, dim) * (1.0 / x.shape[dim])
+
+
+def seq_sumsq(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Left-to-right float32 sum of squares with a fused multiply-add per
+    term, ``acc = fma(x_i, x_i, acc)``: the reference's compiled CPU
+    reduction contracts the square into the accumulation. Each term is
+    formed in float64, where ``x_i * x_i`` of a float32 is exact, and
+    rounded once to float32."""
+    x = x.movedim(dim, -1).double()
+    acc = torch.zeros_like(x[..., 0], dtype=F32)
+    for i in range(x.shape[-1]):
+        acc = (x[..., i] * x[..., i] + acc.double()).to(F32)
+    return acc
+
+
+def exact_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root on every device (float64
+    sqrt then one rounding; PyTorch's vectorized CPU float32 sqrt is not
+    always correctly rounded)."""
+    return torch.sqrt(x.double()).to(F32)
+
+
+def completion_time(start, exec_time, deadline):
+    """Eq. 1 — expected completion time of a task mapped at ``start``."""
+    s, e, d = torch.broadcast_tensors(start, exec_time, deadline)
+    on_time = s + e <= d
+    started = s < d
+    return torch.where(on_time, s + e, torch.where(started, d, s))
+
+
+def feasible(start, exec_time, deadline):
+    """A [task, machine] pair is feasible iff it completes by the deadline."""
+    return start + exec_time <= deadline
+
+
+def expected_energy(start, exec_time, deadline, p_dyn):
+    """Eq. 2 — expected dynamic energy of executing the pair."""
+    s, e, d, p = torch.broadcast_tensors(start, exec_time, deadline, p_dyn)
+    on_time = s + e <= d
+    started = s < d
+    zero = torch.zeros((), dtype=F32, device=s.device)
+    return torch.where(on_time, p * e, torch.where(started, p * (d - s), zero))
+
+
+def fairness_limit(completion_rates, fairness_factor):
+    """Eq. 3 — epsilon = mu - f * sigma over per-type completion rates.
+
+    sigma is the population standard deviation (ddof 0), clamped at 0.
+    Reduces over the last axis. Bit-exact with the reference for a
+    power-of-two type count (the paper and AWS systems); for other counts
+    the reference's compiler contracts the centring into fused
+    multiply-adds, and sigma may differ in its last place.
+    """
+    cr = completion_rates.to(F32)
+    mu = seq_mean(cr)
+    centered = cr - mu[..., None]
+    sigma = exact_sqrt(seq_sumsq(centered) * (1.0 / cr.shape[-1]))
+    return torch.clamp(mu - fairness_factor * sigma, min=0.0)
+
+
+def deadlines(arrival, task_type, eet):
+    """Eq. 4 — delta_i(k) = arr_k + e_bar_i + e_bar."""
+    eet = eet.to(F32)
+    e_bar_i = seq_mean(eet, dim=1)                    # (S,)
+    e_bar = seq_mean(e_bar_i, dim=0)                  # ()
+    return arrival.to(F32) + e_bar_i[task_type] + e_bar
+
+
+def hash_machine(n_tasks: int, now: torch.Tensor, n_machines: int):
+    """(B, N) int64 ``(idx * 2654435761 + uint32(now * 1e3)) % M`` with
+    uint32 wrap-around, computed in int64 and masked to 32 bits: the
+    random nominator's machine for every task of every replicate."""
+    mask = 0xFFFFFFFF
+    idx = torch.arange(n_tasks, device=now.device, dtype=torch.int64)
+    salt = (now * 1e3).to(torch.int64) & mask                  # (B,)
+    h = ((idx * 2654435761) & mask)[None, :] + salt[:, None]
+    return (h & mask) % n_machines
+
+
+def urgency(deadline, exec_time, now):
+    """MMU's urgency metric: 1 / (delta - now - e). Higher = more urgent."""
+    slack = deadline - now - exec_time
+    eps = torch.full_like(slack, 1e-9)
+    return 1.0 / torch.where(slack.abs() < 1e-9, eps, slack)

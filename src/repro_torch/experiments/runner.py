@@ -1,0 +1,83 @@
+"""Batched Monte-Carlo sweep execution (counterpart of
+``repro/experiments/runner.py``).
+
+One sweep is one trace stack, (rates x replicates) flattened to a batch
+of B traces, simulated as one batch per heuristic: every heuristic sees
+the same traces.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import engine
+from repro_torch.core.device import resolve_device
+from repro_torch.core.types import Metrics, SystemSpec, Trace
+from repro_torch.experiments.results import SweepResult
+from repro_torch.experiments.spec import SweepSpec
+
+
+def _as_tensor(x) -> torch.Tensor:
+    return x if torch.is_tensor(x) else torch.as_tensor(np.array(x))
+
+
+def simulate_sweep(traces: Trace, system: SystemSpec, heuristic_names, *,
+                   use_fused_phase1: bool = False,
+                   use_fused_map: bool = False, max_steps=None, device=None,
+                   run_info: dict | None = None) -> Metrics:
+    """Simulate a flat batch of traces (leaves (B, N), (B, N, M)) under
+    every heuristic, on ``device`` (``None`` = CUDA).
+
+    Returns Metrics as numpy arrays with leaves (H, B, ...). When
+    ``run_info`` is a dict, it receives per heuristic the wall seconds
+    and the number of batched loop iterations.
+    """
+    dev = resolve_device(device)
+    per_h = []
+    for name in heuristic_names:
+        t0 = time.perf_counter()
+        it0 = engine.COUNTS["loop_iterations"]
+        m = engine.simulate_batch(
+            traces, system, name, max_steps=max_steps,
+            use_fused_map=use_fused_map, use_fused_phase1=use_fused_phase1,
+            device=dev)
+        per_h.append(Metrics(*(x.cpu().numpy() for x in m)))
+        if run_info is not None:
+            run_info[name] = {
+                "seconds": time.perf_counter() - t0,
+                "loop_iterations": engine.COUNTS["loop_iterations"] - it0,
+            }
+    return Metrics(*(np.stack(xs) for xs in zip(*per_h)))
+
+
+def run_sweep(spec: SweepSpec, *, traces: Trace | None = None,
+              device=None) -> SweepResult:
+    """Execute a full batched sweep on ``device`` (``None`` = CUDA).
+
+    Builds the (rates x reps) trace stack from ``spec.seed`` — or takes
+    ``traces``, any stack whose leaves lead with (R, K) (numpy arrays or
+    tensors, e.g. the reference's own ``trace_stack``) — simulates it
+    under every heuristic and wraps the per-trace Metrics, reshaped to
+    (H, R, K, ...), in a :class:`SweepResult`.
+    """
+    dev = resolve_device(device)
+    system = spec.resolve_system()
+    R, K = len(spec.rates), spec.reps
+    if traces is None:
+        traces = spec.resolve_scenario().stack(
+            spec.seed, spec.rates, spec.reps, spec.n_tasks, system.eet,
+            cv_run=spec.cv_run, device=dev)
+    flat = Trace(*(_as_tensor(x).reshape((R * K,) + tuple(x.shape[2:]))
+                   for x in traces))
+    run_info: dict = {}
+    metrics = simulate_sweep(
+        flat, system, spec.heuristics,
+        use_fused_phase1=spec.use_fused_phase1,
+        use_fused_map=spec.use_fused_map, max_steps=spec.max_steps,
+        device=dev, run_info=run_info)
+    H = len(spec.heuristics)
+    metrics = Metrics(*(x.reshape((H, R, K) + x.shape[2:]) for x in metrics))
+    return SweepResult.from_metrics(spec, system, metrics, device=str(dev),
+                                    run_info=run_info)

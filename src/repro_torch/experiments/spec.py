@@ -1,0 +1,136 @@
+"""Sweep configuration (counterpart of ``repro/experiments/spec.py``).
+
+A :class:`SweepSpec` fixes a batched Monte-Carlo experiment — system,
+arrival rates, replicates, heuristics, seed — so a sweep is reproducible
+from its spec alone. Heuristic names resolve through
+:mod:`repro_torch.core.policy`, system names through the fleet registry
+(``"paper"``, ``"aws"``). Only the ``"poisson"`` scenario is ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+from repro_torch.core.types import SystemSpec
+
+DEFAULT_HEURISTICS = ("MM", "MSD", "MMU", "ELARE", "FELARE")
+DEFAULT_RATES = (2.0, 3.0, 4.0, 6.0, 8.0)
+
+
+def parse_rates(text: str) -> tuple[float, ...]:
+    """Parse a CLI rate grid: ``"a,b,c"`` or an inclusive
+    ``"start:stop[:step]"`` range."""
+    text = text.strip()
+    if ":" in text:
+        parts = [float(p) for p in text.split(":")]
+        if len(parts) == 2:
+            start, stop, step = parts[0], parts[1], 1.0
+        elif len(parts) == 3:
+            start, stop, step = parts
+        else:
+            raise ValueError(f"bad rate range {text!r}; want start:stop[:step]")
+        if step <= 0:
+            raise ValueError(f"rate step must be positive, got {step}")
+        out = []
+        r = start
+        while r <= stop + 1e-9:
+            out.append(round(r, 9))
+            r += step
+        return tuple(out)
+    return tuple(float(p) for p in text.split(",") if p.strip())
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepSpec:
+    """A batched Monte-Carlo sweep over (rates x replicates x heuristics).
+
+    Attributes mirror the JAX ``SweepSpec``; ``use_fused_phase1`` and
+    ``use_fused_map`` are the counterparts of ``use_pallas_phase1`` and
+    ``use_pallas_map`` (both off by default): they route ELARE's Phase I,
+    or the whole map decision, through the port's CUDA kernels.
+    """
+
+    system: Union[str, SystemSpec, None] = None
+    rates: tuple[float, ...] = DEFAULT_RATES
+    reps: int = 8
+    n_tasks: int = 400
+    heuristics: tuple[str, ...] = DEFAULT_HEURISTICS
+    seed: int = 0
+    cv_run: float = 0.1
+    queue_size: Optional[int] = None
+    fairness_factor: Optional[float] = None
+    use_fused_phase1: bool = False
+    use_fused_map: bool = False
+    max_steps: Optional[int] = None
+    scenario: str = "poisson"
+
+    def __post_init__(self):
+        object.__setattr__(self, "rates",
+                           tuple(float(r) for r in self.rates))
+        object.__setattr__(self, "heuristics",
+                           tuple(h.upper() for h in self.heuristics))
+        if self.reps < 1:
+            raise ValueError("reps must be >= 1")
+        if self.n_tasks < 1:
+            raise ValueError("n_tasks must be >= 1")
+        if not self.rates:
+            raise ValueError("rates must be non-empty")
+        if not self.heuristics:
+            raise ValueError("heuristics must be non-empty")
+        from repro_torch import scenarios
+        from repro_torch.core import policy
+
+        unknown = [h for h in self.heuristics if not policy.is_registered(h)]
+        if unknown:
+            raise ValueError(f"unknown heuristics {unknown}; choose from "
+                             f"{policy.list_policies()}")
+        if not scenarios.is_registered(self.scenario):
+            raise ValueError(f"unknown scenario {self.scenario!r}; choose "
+                             f"from {scenarios.list_scenarios()}")
+
+    @property
+    def n_simulations(self) -> int:
+        return len(self.heuristics) * len(self.rates) * self.reps
+
+    def resolve_scenario(self):
+        from repro_torch import scenarios
+
+        return scenarios.get(self.scenario)
+
+    def resolve_system(self) -> SystemSpec:
+        """The SystemSpec, with the queue-size / fairness overrides."""
+        from repro_torch import scenarios
+
+        if isinstance(self.system, SystemSpec):
+            sys_spec = self.system
+        else:
+            name = "paper" if self.system is None else str(self.system)
+            try:
+                sys_spec = scenarios.get_fleet(name).build()
+            except KeyError:
+                raise ValueError(f"unknown system {self.system!r}; choose "
+                                 f"from {scenarios.list_fleets()} or pass a "
+                                 f"SystemSpec") from None
+        overrides = {}
+        if self.queue_size is not None:
+            overrides["queue_size"] = int(self.queue_size)
+        if self.fairness_factor is not None:
+            overrides["fairness_factor"] = float(self.fairness_factor)
+        if overrides:
+            sys_spec = dataclasses.replace(sys_spec, **overrides)
+        return sys_spec
+
+    def to_json_dict(self) -> dict:
+        """JSON-ready record of the spec (written into ``sweep.json``)."""
+        d = dataclasses.asdict(self)
+        if isinstance(self.system, SystemSpec):
+            d["system"] = {
+                "eet": [[float(x) for x in row] for row in self.system.eet],
+                "p_dyn": [float(x) for x in self.system.p_dyn],
+                "p_idle": [float(x) for x in self.system.p_idle],
+                "queue_size": self.system.queue_size,
+                "fairness_factor": self.system.fairness_factor,
+            }
+        d["rates"] = list(self.rates)
+        d["heuristics"] = list(self.heuristics)
+        return d

@@ -1,0 +1,158 @@
+"""One-command batched Monte-Carlo sweep CLI on the port.
+
+    PYTHONPATH=src python -m repro_torch.experiments.sweep \
+        --system paper --rates 2,3,4,6,8 --reps 8 --tasks 400 \
+        --heuristics MM,MSD,MMU,ELARE,FELARE --out artifacts/sweep_torch
+
+Runs on the CUDA device unless ``--device cpu`` is given. Rates accept a
+comma list (``2,3,4.5``) or an inclusive ``start:stop:step`` range.
+``--fused-map`` runs the whole map decision through the ``map_fused``
+kernels, ``--fused-phase1`` ELARE's Phase I through ``phase1_map``.
+Unknown names and bad grids exit with an ``error:`` line and status 2.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+from repro_torch import scenarios
+from repro_torch.core import policy
+from repro_torch.core.device import resolve_device
+from repro_torch.experiments.results import SweepResult
+from repro_torch.experiments.runner import run_sweep
+from repro_torch.experiments.spec import (
+    DEFAULT_HEURISTICS,
+    DEFAULT_RATES,
+    SweepSpec,
+    parse_rates,
+)
+
+
+def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
+    """Parse CLI args into a SweepSpec; ``args.device`` comes back
+    resolved to a ``torch.device``."""
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.experiments.sweep",
+        description="Batched Monte-Carlo sweep over "
+                    "(arrival rates x replicates x heuristics), on the "
+                    "PyTorch/CUDA port.",
+    )
+    ap.add_argument("--system", default="paper",
+                    help="registered fleet: " + ", ".join(
+                        scenarios.list_fleets()) + " (default: paper)")
+    ap.add_argument("--rates", default=None,
+                    help="comma list '2,3,4' or inclusive range "
+                         "'start:stop:step' (default: "
+                         + ",".join(str(r) for r in DEFAULT_RATES) + ")")
+    ap.add_argument("--reps", type=int, default=8,
+                    help="replicate traces per rate (default: 8)")
+    ap.add_argument("--tasks", type=int, default=400,
+                    help="tasks per trace (default: 400; paper uses 2000)")
+    ap.add_argument("--heuristics", default=",".join(DEFAULT_HEURISTICS),
+                    help="comma list of registered policy names (default: "
+                         + ",".join(DEFAULT_HEURISTICS) + "; see --list)")
+    ap.add_argument("--list", action="store_true",
+                    help="list the registered scheduling policies and exit")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cv-run", type=float, default=0.1,
+                    help="CV of actual runtimes around the EET (default 0.1)")
+    ap.add_argument("--queue-size", type=int, default=None,
+                    help="per-machine queue slots (default: system's own)")
+    ap.add_argument("--fairness-factor", type=float, default=None,
+                    help="Eq. 3 fairness factor f (default: system's own)")
+    ap.add_argument("--fused-phase1", action="store_true",
+                    help="run ELARE/FELARE Phase I through the phase1_map "
+                         "kernel")
+    ap.add_argument("--fused-map", action="store_true",
+                    help="run the whole map decision through the map_fused "
+                         "kernels (map_decide, evict_stats)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the plain "
+                         "PyTorch versions on the CPU)")
+    ap.add_argument("--out", default="artifacts/sweep_torch",
+                    help="artifact directory (default: artifacts/sweep_torch)")
+    args = ap.parse_args(argv)
+
+    if args.list:
+        print_policy_list()
+        raise SystemExit(0)
+    heuristics = tuple(
+        h.strip() for h in args.heuristics.split(",") if h.strip()
+    )
+    unknown = [h for h in heuristics if not policy.is_registered(h)]
+    if unknown:
+        ap.error(f"unknown heuristics {unknown}; registered policies: "
+                 + ", ".join(policy.list_policies())
+                 + " (run with --list for details)")
+    if not scenarios.is_registered_fleet(args.system):
+        ap.error(f"unknown system {args.system!r}; registered fleets: "
+                 + ", ".join(scenarios.list_fleets()))
+    try:
+        rates = parse_rates(args.rates) if args.rates else DEFAULT_RATES
+        spec = SweepSpec(
+            system=args.system,
+            rates=rates,
+            reps=args.reps,
+            n_tasks=args.tasks,
+            heuristics=heuristics,
+            seed=args.seed,
+            cv_run=args.cv_run,
+            queue_size=args.queue_size,
+            fairness_factor=args.fairness_factor,
+            use_fused_phase1=args.fused_phase1,
+            use_fused_map=args.fused_map,
+        )
+        args.device = resolve_device(args.device)
+    except (ValueError, RuntimeError) as e:
+        ap.error(str(e))  # clean exit 2 instead of a traceback
+    return spec, args
+
+
+def print_policy_list(file=None) -> None:
+    """One line per registered policy: name + composition."""
+    file = file if file is not None else sys.stdout
+    print(f"{'name':10s} {'phase-1 nominator':20s} {'phase-2 key':12s} "
+          f"{'drop rule':15s} {'fairness':8s}", file=file)
+    for name in policy.list_policies():
+        d = policy.describe(name)
+        print(f"{name:10s} {d.nominator:20s} {d.phase2_key:12s} "
+              f"{d.drop_rule:15s} {'yes' if d.fairness else 'no':8s}",
+              file=file)
+
+
+def print_summary(result: SweepResult, file=None) -> None:
+    """Human-readable per-cell table (one line per heuristic x rate)."""
+    file = file if file is not None else sys.stdout
+    print(f"{'heuristic':9s} {'rate':>6s} {'ontime%':>8s} {'±ci':>6s} "
+          f"{'energy':>10s} {'waste%':>7s} {'cancel%':>8s} {'miss%':>6s} "
+          f"{'spread':>7s} {'jain':>6s}", file=file)
+    for row in result.summary_rows():
+        print(f"{row['heuristic']:9s} {row['rate']:6.2f} "
+              f"{100 * row['completion_rate']:8.2f} "
+              f"{100 * row['completion_rate_ci95']:6.2f} "
+              f"{row['energy']:10.1f} {row['wasted_pct']:7.2f} "
+              f"{row['cancelled_pct']:8.2f} {row['missed_pct']:6.2f} "
+              f"{row['fairness_spread']:7.4f} {row['jain_index']:6.4f}",
+              file=file)
+
+
+def main(argv=None) -> SweepResult:
+    spec, args = build_spec(argv)
+    n = spec.n_simulations
+    print(f"sweep: {len(spec.heuristics)} heuristics x "
+          f"{len(spec.rates)} rates x {spec.reps} reps "
+          f"({n} traces of {spec.n_tasks} tasks) on system={args.system} "
+          f"device={args.device}", flush=True)
+    t0 = time.perf_counter()
+    result = run_sweep(spec, device=args.device)
+    dt = time.perf_counter() - t0
+    print(f"simulated {n} traces in {dt:.1f}s\n")
+    print_summary(result)
+    paths = result.save(args.out)
+    print("\nwrote " + ", ".join(str(p) for p in paths.values()))
+    return result
+
+
+if __name__ == "__main__":
+    main()

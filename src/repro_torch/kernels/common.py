@@ -1,0 +1,52 @@
+"""What every kernel wrapper of the port shares: the CPU/CUDA split and the
+argument checks done before a pointer reaches native code."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU: the wrapper then runs its
+    plain PyTorch version. Anything else must be one CUDA device."""
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+          device: torch.device) -> int:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``; return its data pointer."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return t.data_ptr()
+
+
+def cuda_device(t: torch.Tensor) -> torch.device:
+    """The CUDA device of ``t``; raises for any other device."""
+    if t.device.type != "cuda":
+        raise ValueError(f"kernel inputs must all lie on the CPU or all on "
+                         f"one CUDA device, got {t.device}")
+    return t.device
+
+
+def stream_ptr(device: torch.device) -> int:
+    """The current PyTorch stream of ``device``, as a pointer."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on(rc: int, kernel: str) -> None:
+    """Raise when a launch reported a CUDA error (``cudaGetLastError``)."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed with CUDA error {rc}")
+
+
+#: ctypes argument types: a pointer (device address or stream) and an int.
+PTR = ctypes.c_void_p
+INT = ctypes.c_int

@@ -1,0 +1,229 @@
+"""The fused map-decision kernels: wrappers and their plain versions.
+
+Counterpart of ``repro/kernels/map_fused/ops.py`` for the two kernels
+on the flat path, batched over B replicates:
+
+  * :func:`map_decide` — per event: the drop mask, and per machine the
+    lowest Phase-II key among its suffered (hi) and other (lo) nominees,
+    with the task holding it;
+  * :func:`evict_stats` — per task: feasible now on some free machine,
+    and the fastest EET (the two grid reductions FELARE's eviction
+    planner needs).
+
+Each wrapper runs its plain PyTorch version when every input lies on the
+CPU, and otherwise launches its CUDA kernel (``csrc/map_fused.cu``) or
+raises. ``LAUNCHES`` counts kernel launches, and nothing else.
+
+No padding: the kernels handle any N and M. A machine whose key is BIG
+has no nominee, and its task is then 0, as in the TPU kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.equations import BIG, hash_machine
+from repro_torch.kernels import build
+from repro_torch.kernels.common import (
+    INT,
+    PTR,
+    check,
+    cuda_device,
+    on_cpu,
+    raise_on,
+    stream_ptr,
+)
+
+#: Nominator / Phase-II key / drop-rule kinds the kernel implements, in
+#: the order of the kernel's integer codes.
+NOMINATOR_KINDS = ("min_energy_feasible", "min_completion",
+                   "min_execution", "random_hash")
+KEY_KINDS = ("value", "deadline", "urgency", "fcfs")
+DROP_KINDS = ("stale", "stale_hopeless")
+
+#: Kernel launches since the last reset (the CPU path never counts).
+LAUNCHES = {"map_decide": 0, "evict_stats": 0}
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = build.load("map_fused")
+        lib.map_decide_launch.argtypes = [PTR] * 3 + [INT] + [PTR] * 11 + \
+            [INT] * 6 + [PTR]
+        lib.map_decide_launch.restype = INT
+        lib.evict_stats_launch.argtypes = [PTR] * 8 + [INT] * 3 + [PTR]
+        lib.evict_stats_launch.restype = INT
+        _LIB = lib
+    return _LIB
+
+
+def _check_kinds(nominator, phase2_key, drop_rule):
+    if nominator not in NOMINATOR_KINDS:
+        raise ValueError(f"unsupported nominator kind {nominator!r}")
+    if phase2_key not in KEY_KINDS:
+        raise ValueError(f"unsupported phase2 key kind {phase2_key!r}")
+    if drop_rule not in DROP_KINDS:
+        raise ValueError(f"unsupported drop rule kind {drop_rule!r}")
+
+
+# --------------------------------------------------------------------------
+# Plain versions
+# --------------------------------------------------------------------------
+def map_decide_plain(now, start, p_dyn, qfree, eet, deadline, pending,
+                     task_type, suffered_task, *, nominator: str,
+                     phase2_key: str, drop_rule: str):
+    """What the ``map_decide`` kernel computes, in PyTorch ops.
+
+    now (B,) f32; start (B, M) f32; p_dyn (M,) or (B, M) f32; qfree (B, M)
+    bool; eet (S, M) f32; deadline (B, N) f32; pending, suffered_task
+    (B, N) bool; task_type (B, N) int64. Returns ``(drop (B, N) bool,
+    hi_key (B, M) f32, hi_task (B, M) int64, lo_key, lo_task)``.
+    """
+    _check_kinds(nominator, phase2_key, drop_rule)
+    B, N = deadline.shape
+    M = eet.shape[1]
+    big = torch.full((), BIG, device=start.device)
+    e = eet[task_type]                                    # (B, N, M)
+    s = start[:, None, :]
+    d = deadline[:, :, None]
+    nowc = now[:, None]
+    stale = pending & (nowc >= deadline)
+    alive = pending & ~stale
+    drop = stale
+    if drop_rule == "stale_hopeless":
+        drop = stale | (pending & (nowc + e.min(dim=2).values > deadline))
+
+    if nominator == "random_hash":
+        best = hash_machine(N, now, M)
+        value = torch.arange(N, device=start.device,
+                             dtype=torch.float32).expand(B, N)
+        valid = alive
+    else:
+        free = qfree[:, None, :]
+        if nominator == "min_energy_feasible":
+            pd = p_dyn if p_dyn.dim() == 2 else p_dyn.expand(B, M)
+            feas = (s + e <= d) & pending[:, :, None] & free
+            score = torch.where(feas, pd[:, None, :] * e, big)
+        elif nominator == "min_completion":
+            comp = torch.where(s + e <= d, s + e,
+                               torch.where(s < d, d.expand_as(e),
+                                           s.expand_as(e)))
+            score = torch.where(alive[:, :, None] & free, comp, big)
+        else:  # min_execution
+            score = torch.where(alive[:, :, None] & free, e, big)
+        value, best = score.min(dim=2)
+        valid = value < BIG
+
+    if phase2_key == "value":
+        key = value
+    elif phase2_key == "deadline":
+        scaled = 1e-6 * value
+        key = deadline + scaled
+    elif phase2_key == "urgency":
+        slack = deadline - nowc - e.gather(2, best[:, :, None])[:, :, 0]
+        key = -(1.0 / torch.where(slack.abs() < 1e-9,
+                                  torch.full_like(slack, 1e-9), slack))
+    else:  # fcfs
+        key = torch.arange(N, device=start.device,
+                           dtype=torch.float32).expand(B, N)
+
+    nominee = valid[:, :, None] & (
+        best[:, :, None] == torch.arange(M, device=start.device))
+    out = [drop]
+    for pool in (suffered_task, ~suffered_task):
+        masked = torch.where(nominee & pool[:, :, None], key[:, :, None], big)
+        kmin, kidx = masked.min(dim=1)                    # lowest index
+        has = kmin < BIG
+        out += [torch.where(has, kmin, big), torch.where(has, kidx, 0)]
+    return tuple(out)
+
+
+def evict_stats_plain(start, qfree, eet, deadline, pending, task_type):
+    """What the ``evict_stats`` kernel computes, in PyTorch ops.
+
+    Returns ``(task_feas_now (B, N) bool, min_exec (B, N) f32)``.
+    """
+    e = eet[task_type]
+    feas = ((start[:, None, :] + e <= deadline[:, :, None])
+            & pending[:, :, None] & qfree[:, None, :])
+    return feas.any(dim=2), e.min(dim=2).values
+
+
+# --------------------------------------------------------------------------
+# Wrappers
+# --------------------------------------------------------------------------
+def map_decide(now, start, p_dyn, qfree, eet, deadline, pending, task_type,
+               suffered_task, *, nominator: str, phase2_key: str,
+               drop_rule: str):
+    """One fused pass: drop mask + per-machine Phase-II argmins.
+
+    Arguments and results as :func:`map_decide_plain`. ``task_type``
+    entries must lie in ``[0, S)``; the kernel does not check them.
+    """
+    _check_kinds(nominator, phase2_key, drop_rule)
+    args = (now, start, p_dyn, qfree, eet, deadline, pending, task_type,
+            suffered_task)
+    if on_cpu(*args):
+        return map_decide_plain(*args, nominator=nominator,
+                                phase2_key=phase2_key, drop_rule=drop_rule)
+    dev = cuda_device(start)
+    B, N = deadline.shape
+    S, M = eet.shape
+    f32, b8, i64 = torch.float32, torch.bool, torch.int64
+    pdyn_shape = (M,) if p_dyn.dim() == 1 else (B, M)
+    ptrs = [
+        check(now, "now", f32, (B,), dev),
+        check(start, "start", f32, (B, M), dev),
+        check(p_dyn, "p_dyn", f32, pdyn_shape, dev),
+        check(qfree, "qfree", b8, (B, M), dev),
+        check(eet, "eet", f32, (S, M), dev),
+        check(deadline, "deadline", f32, (B, N), dev),
+        check(pending, "pending", b8, (B, N), dev),
+        check(task_type, "task_type", i64, (B, N), dev),
+        check(suffered_task, "suffered_task", b8, (B, N), dev),
+    ]
+    drop = torch.empty((B, N), dtype=b8, device=dev)
+    hi_key = torch.empty((B, M), dtype=f32, device=dev)
+    hi_task = torch.empty((B, M), dtype=i64, device=dev)
+    lo_key = torch.empty((B, M), dtype=f32, device=dev)
+    lo_task = torch.empty((B, M), dtype=i64, device=dev)
+    outs = (drop, hi_key, hi_task, lo_key, lo_task)
+    rc = _lib().map_decide_launch(
+        *ptrs[:3], 0 if p_dyn.dim() == 1 else M, *ptrs[3:],
+        *(o.data_ptr() for o in outs), B, N, M,
+        NOMINATOR_KINDS.index(nominator), KEY_KINDS.index(phase2_key),
+        DROP_KINDS.index(drop_rule), stream_ptr(dev))
+    raise_on(rc, "map_decide")
+    LAUNCHES["map_decide"] += 1
+    return outs
+
+
+def evict_stats(start, qfree, eet, deadline, pending, task_type):
+    """Per-task eviction-planner stats over the pre-eviction grid.
+
+    Arguments and results as :func:`evict_stats_plain`.
+    """
+    args = (start, qfree, eet, deadline, pending, task_type)
+    if on_cpu(*args):
+        return evict_stats_plain(*args)
+    dev = cuda_device(start)
+    B, N = deadline.shape
+    S, M = eet.shape
+    ptrs = [
+        check(start, "start", torch.float32, (B, M), dev),
+        check(qfree, "qfree", torch.bool, (B, M), dev),
+        check(eet, "eet", torch.float32, (S, M), dev),
+        check(deadline, "deadline", torch.float32, (B, N), dev),
+        check(pending, "pending", torch.bool, (B, N), dev),
+        check(task_type, "task_type", torch.int64, (B, N), dev),
+    ]
+    feas = torch.empty((B, N), dtype=torch.bool, device=dev)
+    min_exec = torch.empty((B, N), dtype=torch.float32, device=dev)
+    rc = _lib().evict_stats_launch(*ptrs, feas.data_ptr(),
+                                   min_exec.data_ptr(), B, N, M,
+                                   stream_ptr(dev))
+    raise_on(rc, "evict_stats")
+    LAUNCHES["evict_stats"] += 1
+    return feas, min_exec

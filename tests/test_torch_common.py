@@ -1,0 +1,121 @@
+"""Shared helpers for the PyTorch port's parity tests (holds no tests).
+
+The port (``repro_torch``) is held against the JAX package (``repro``) on
+identical inputs: numpy arrays made from fixed seeds go through both, and
+the reference's own traces are carried into the port with
+``repro_torch.interop``. JAX stays on the CPU; the port runs with
+``device="cpu"``, where every kernel wrapper takes its plain version.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.core import api, workload
+from repro.core.policy.context import MachineView, SchedContext
+from repro.core.types import SystemArrays
+from repro_torch import interop
+
+CPU = "cpu"
+SPEC = api.paper_system()
+TSPEC = interop.system_from_arrays(SPEC.eet, SPEC.p_dyn, SPEC.p_idle,
+                                   SPEC.queue_size, SPEC.fairness_factor)
+HEURISTICS = ("MM", "MSD", "MMU", "MET", "MCT", "RANDOM", "ELARE", "FELARE")
+COUNT_FIELDS = ("completed_by_type", "missed_by_type", "cancelled_by_type",
+                "arrived_by_type")
+ENERGY_FIELDS = ("energy_dynamic", "energy_wasted", "energy_idle")
+
+
+def dyadic(x):
+    """Round to 1/64 so float32 sums do not depend on their order."""
+    return (np.round(np.asarray(x) * 64) / 64).astype(np.float32)
+
+
+def jax_trace(seed: int, n: int, rate: float, eet=None):
+    """The reference's Poisson trace, dyadic-rounded as its tests do."""
+    eet = SPEC.eet if eet is None else eet
+    tr = workload.poisson_trace(jax.random.PRNGKey(seed), n, rate, eet)
+    return tr._replace(
+        arrival=jnp.asarray(dyadic(tr.arrival)),
+        deadline=jnp.asarray(dyadic(tr.deadline)),
+        exec_actual=jnp.asarray(dyadic(tr.exec_actual)),
+    )
+
+
+def stack_traces(traces):
+    """Stack reference traces into one batched port Trace on the CPU."""
+    return interop.trace_from_arrays(
+        *(np.stack([np.asarray(getattr(t, f)) for t in traces])
+          for f in ("arrival", "task_type", "deadline", "exec_actual")),
+        device=CPU)
+
+
+def assert_metrics_match(ref: dict, port: dict, what: str,
+                         energy_rel: float = 1e-5) -> None:
+    """Counters and makespan identical; energies within ``energy_rel``
+    (sums over machines may run in another order)."""
+    for k in COUNT_FIELDS + ("makespan",):
+        np.testing.assert_array_equal(np.asarray(port[k]),
+                                      np.asarray(ref[k]),
+                                      err_msg=f"{what}: {k}")
+    for k in ENERGY_FIELDS:
+        np.testing.assert_allclose(np.asarray(port[k], np.float64),
+                                   np.asarray(ref[k], np.float64),
+                                   rtol=energy_rel, err_msg=f"{what}: {k}")
+
+
+def random_context_arrays(B, N, M, S, Q, seed):
+    """B random mapping events as numpy arrays, with adversarial draws:
+    full queues, stale tasks, empty machines, tied EET columns."""
+    r = np.random.default_rng(seed)
+    f32 = np.float32
+    eet = r.uniform(0.5, 20, (S, M)).astype(f32)
+    if M > 1:
+        eet[:, M - 1] = eet[:, 0]
+    qlen = r.integers(0, Q + 1, (B, M))
+    queue = np.full((B, M, Q), -1, np.int64)
+    for b in range(B):
+        for m in range(M):
+            queue[b, m, :qlen[b, m]] = r.integers(0, N, qlen[b, m])
+    return dict(
+        now=r.uniform(0, 50, B).astype(f32),
+        pending=r.integers(0, 2, (B, N)).astype(bool),
+        task_type=r.integers(0, S, (B, N)).astype(np.int64),
+        deadline=r.uniform(0, 120, (B, N)).astype(f32),
+        avail_base=r.uniform(0, 60, (B, M)).astype(f32),
+        queue=queue,
+        qlen=qlen.astype(np.int64),
+        eet=eet,
+        p_dyn=r.uniform(1, 10, M).astype(f32),
+        p_idle=r.uniform(0.1, 1, M).astype(f32),
+        suffered=r.integers(0, 2, (B, S)).astype(bool),
+    )
+
+
+def jax_context(a: dict, b: int) -> SchedContext:
+    """Replicate ``b`` of :func:`random_context_arrays` as a JAX context."""
+    return SchedContext(
+        now=jnp.float32(a["now"][b]),
+        pending=jnp.asarray(a["pending"][b]),
+        task_type=jnp.asarray(a["task_type"][b].astype(np.int32)),
+        deadline=jnp.asarray(a["deadline"][b]),
+        view=MachineView(avail_base=jnp.asarray(a["avail_base"][b]),
+                         queue=jnp.asarray(a["queue"][b].astype(np.int32)),
+                         qlen=jnp.asarray(a["qlen"][b].astype(np.int32))),
+        sysarr=SystemArrays(eet=jnp.asarray(a["eet"]),
+                            p_dyn=jnp.asarray(a["p_dyn"]),
+                            p_idle=jnp.asarray(a["p_idle"])),
+        suffered=jnp.asarray(a["suffered"][b]),
+    )
+
+
+def port_context(a: dict):
+    """All replicates of :func:`random_context_arrays` as one port
+    context on the CPU."""
+    return interop.context_from_arrays(**a, device=CPU)
+
+
+def to_np(x) -> np.ndarray:
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
