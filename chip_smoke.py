@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the FELARE simulator on one CUDA card.
 
-    python3 chip_smoke.py            # the full check, on one card
-    python3 chip_smoke.py --reps 10  # a shorter main path
+    python3 chip_smoke.py                # the full check, on one card
+    python3 chip_smoke.py --reps 10      # a shorter flat path
+    python3 chip_smoke.py --fed-reps 10  # a shorter federated path
 
 Phases, one JSON line each; any failed check raises, so the script exits
 non-zero and prints no result line:
@@ -10,10 +11,14 @@ non-zero and prints no result line:
   1. env      torch and CUDA versions, the card's name and power limit;
   2. build    nvcc builds the kernels from ``src/repro_torch/kernels/csrc``;
   3. kernels  each kernel against its plain PyTorch version on the card,
-              bit for bit (``torch.equal`` on every output), at the main
-              path's shape and at a wide one, over every nominator x key x
-              drop rule with the suffered split on and off;
-  4. main     the paper-scale sweep (paper 4x4 system, rates 2-8, 30
+              bit for bit (``torch.equal`` on every output): the map
+              kernels at the flat path's shape and at a wide one, over
+              every nominator x key x drop rule with the suffered split on
+              and off, and in their per-row EET form at the federation's
+              block-fold and masked-fold shapes; ``balance_scan`` at the
+              federated path's shape and at F = 32 and 37, over sparse to
+              full admissions, tied loads and dead-site penalties;
+  4. main     the flat paper-scale sweep (paper 4x4 system, rates 2-8, 30
               replicates of 2000 tasks) with ELARE, FELARE and MM on the
               fused map kernels and ELARE on the phase1_map kernel; the
               launch counts, zeroed just before, must show every kernel
@@ -23,10 +28,21 @@ non-zero and prints no result line:
               through the port on the CPU gives identical counters with
               energies within rel 1e-5 (sums over machines run in another
               order there);
-  6. profile  where one batched event's time goes: the first 64
-              iterations of the fused FELARE sweep under torch.profiler
-              (wall vs device-busy time, kernels per iteration);
-  7. times    per kernel at the main path's shape: device time per
+  6. fed      the federated sweep: paper_x8 (8 sites of the 4x4 system,
+              total rates 16-64, 30 replicates of 4000 tasks) with FELARE
+              + fair_spill and ELARE + least_queued, then tiered_x4 (four
+              unequal sites, masked views) with FELARE + least_queued, all
+              on the fused kernels: map_decide and balance_scan launch
+              once per batched event, not once per site;
+  7. fed_parity  the plain path on the card gives identical counters and
+              makespans, and a 2 x 2 subset (each trace cut to its first
+              1000 tasks) gives the same counters on the CPU;
+  8. profile  where one batched event's time goes: the first 64
+              iterations of the flat FELARE and phase1 ELARE sweeps and of
+              the federated FELARE + fair_spill sweep on paper_x2 and
+              paper_x8 under torch.profiler (wall vs device-busy time,
+              kernels per iteration, which must not grow with the sites);
+  9. times    per kernel at the main path's shape: device time per
               launch (``torch.profiler``), the plain version's device time
               per call, the eager time per call by CUDA events with the
               host's work included, and the least time the card could
@@ -53,6 +69,20 @@ F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 MAIN_SHAPE = dict(B=150, N=2000, M=4, S=4)
 WIDE_SHAPE = dict(B=8, N=10_000, M=512, S=8)
 RATES = (2.0, 3.0, 4.0, 6.0, 8.0)
+# The federation: the paper's per-site rates (2-8 tasks/s) at every site.
+FED_RATES = tuple(8 * r for r in RATES)          # paper_x8, total tasks/s
+FED_TASKS = 4000
+TIER_RATES = (12.0, 24.0)                        # tiered_x4, total tasks/s
+TIER_REPS, TIER_TASKS = 10, 2000
+CPU_SUBSET_TASKS = 1000
+BALANCE_SHAPES = (dict(B=150, N=FED_TASKS, F=8), dict(B=8, N=10_000, F=32),
+                  dict(B=8, N=10_000, F=37))
+BALANCE_DENSITIES = (0.01, 0.5, 1.0)
+# Per-row EET shapes: paper_x8's block fold (B * F rows of m = 4 machines)
+# and tiered_x4's masked fold (B * F rows of all 20 machines).
+BLOCK_ROWS = dict(B=150, F=8, N=FED_TASKS, m=4, S=4)
+MASKED_ROWS = dict(B=150, sites=(0,) * 4 + (1,) * 4 + (2,) * 4 + (3,) * 8,
+                   N=TIER_TASKS, S=4)
 KERNEL_SOURCES = {
     "map_decide": ("src/repro_torch/kernels/csrc/map_fused.cu",
                    "src/repro/kernels/map_fused/kernel.py:181"),
@@ -60,6 +90,8 @@ KERNEL_SOURCES = {
                     "src/repro/kernels/map_fused/kernel.py:237"),
     "phase1_map": ("src/repro_torch/kernels/csrc/phase1_map.cu",
                    "src/repro/kernels/phase1_map/kernel.py:42"),
+    "balance_scan": ("src/repro_torch/kernels/csrc/balance_scan.cu",
+                     "src/repro/kernels/map_fused/kernel.py:289"),
 }
 
 
@@ -176,6 +208,113 @@ def check_kernels(device) -> dict:
     return errs
 
 
+def per_row_inputs(B, N, S, sites, seed, device, block: bool):
+    """Map-kernel inputs for B * F site views, row ``b * F + f`` being site
+    ``f`` of replicate ``b``, as the engine folds them. ``block``: each row
+    holds its site's m machines and its own (S, m) EET and (m,) powers;
+    otherwise each row holds all M machines, and the EET columns of the
+    other sites read BIG (the powers stay shared)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.equations import BIG
+
+    sites = np.asarray(sites)
+    F, M = int(sites.max()) + 1, sites.size
+    rows = B * F
+    width = M // F if block else M
+    x = kernel_inputs(rows, N, width, S, seed, device)
+    r = np.random.default_rng(seed + 1)
+    eet = np.round(r.uniform(0.5, 5.0, (F, S, width)) * 8) / 8
+    eet[:, :, -1] = eet[:, :, 0]                     # tied columns
+    if block:
+        x["p_dyn"] = torch.as_tensor(np.tile(
+            r.choice([1.5, 1.6, 3.0], (F, width)), (B, 1)).astype(np.float32),
+            device=device)
+    else:
+        eet = np.where(sites[None, None, :] == np.arange(F)[:, None, None],
+                       eet, BIG)
+    x["eet"] = torch.as_tensor(np.tile(eet, (B, 1, 1)).astype(np.float32),
+                               device=device)
+    return x
+
+
+def balance_inputs(B, N, F, density, loads, seed, device):
+    """``balance_scan`` inputs: admissions at ``density``, targets on half
+    the tasks (every task in the first half of the replicates, as for
+    ``least_queued``), random homes, and loads either all equal (every
+    argmin a tie) or small and random with some sites dead (+1,000,000)."""
+    import numpy as np
+    import torch
+
+    r = np.random.default_rng(seed)
+    if loads == "equal":
+        load0 = np.full((B, F), 3, np.int64)
+    else:
+        load0 = r.integers(0, 6, (B, F)) \
+            + 1_000_000 * (r.random((B, F)) < 0.25)
+    target = r.random((B, N)) < 0.5
+    target[: B // 2] = True
+    arrays = (load0.astype(np.int64), r.random((B, N)) < density, target,
+              r.integers(0, F, (B, N)).astype(np.int64))
+    return tuple(torch.as_tensor(a, device=device) for a in arrays)
+
+
+def check_federation_kernels(device, errs: dict) -> None:
+    """``balance_scan`` and the per-row EET form of the map kernels against
+    their plain versions on the card, bit for bit."""
+    import torch
+
+    from repro_torch.kernels import map_fused
+    from repro_torch.kernels.map_fused import ops as mf
+
+    cases = 0
+    for shape in BALANCE_SHAPES:
+        for density in BALANCE_DENSITIES:
+            for loads in ("equal", "mixed"):
+                args = balance_inputs(**shape, density=density, loads=loads,
+                                      seed=cases, device=device)
+                got = map_fused.balance_scan(*args)
+                torch.cuda.synchronize()
+                errs["balance_scan"] = max(errs["balance_scan"], compare(
+                    (got,), (map_fused.balance_scan_plain(*args),),
+                    f"balance_scan {shape} {density} {loads}"))
+                cases += 1
+        emit("kernels", kernel="balance_scan", **shape,
+             densities=list(BALANCE_DENSITIES), cases=cases, equal=True)
+    for label, shape, block in (
+            ("block_fold", BLOCK_ROWS, True),
+            ("masked_fold", MASKED_ROWS, False)):
+        sites = shape.get("sites") or tuple(
+            f for f in range(shape["F"]) for _ in range(shape["m"]))
+        x = per_row_inputs(shape["B"], shape["N"], shape["S"], sites,
+                           seed=17, device=device, block=block)
+        n = 0
+        for nom in mf.NOMINATOR_KINDS:
+            for key in mf.KEY_KINDS:
+                for drop in mf.DROP_KINDS:
+                    for suff in (x["suffered"],
+                                 torch.zeros_like(x["suffered"])):
+                        kw = dict(nominator=nom, phase2_key=key,
+                                  drop_rule=drop)
+                        out_k = map_fused.map_decide(*map_decide_args(x),
+                                                     suff, **kw)
+                        torch.cuda.synchronize()
+                        errs["map_decide"] = max(errs["map_decide"], compare(
+                            out_k, map_fused.map_decide_plain(
+                                *map_decide_args(x), suff, **kw),
+                            f"map_decide {label} {kw}"))
+                        n += 1
+        out_k = map_fused.evict_stats(*evict_stats_args(x))
+        torch.cuda.synchronize()
+        errs["evict_stats"] = max(errs["evict_stats"], compare(
+            out_k, map_fused.evict_stats_plain(*evict_stats_args(x)),
+            f"evict_stats {label}"))
+        emit("kernels", shape=label, rows=int(x["eet"].shape[0]),
+             N=shape["N"], M=int(x["eet"].shape[2]), eet=list(x["eet"].shape),
+             cases=n + 1, equal=True)
+
+
 # --------------------------------------------------------------------------
 # Main path and its parity
 # --------------------------------------------------------------------------
@@ -196,7 +335,7 @@ def read_counts() -> dict:
     return {**mf.LAUNCHES, **p1.LAUNCHES}
 
 
-def summarize(result, run_name: str) -> None:
+def summarize(result, run_name: str, phase: str = "main") -> None:
     import numpy as np
 
     m = result.metrics
@@ -211,8 +350,10 @@ def summarize(result, run_name: str) -> None:
         require(bool(np.all(np.isfinite(leaf))), f"{run_name}: non-finite")
     for h_i, h in enumerate(result.heuristics):
         info = result.run_info[h]
-        emit("main", run=run_name, heuristic=h, seconds=info["seconds"],
+        emit(phase, run=run_name, heuristic=h, seconds=info["seconds"],
              event_steps=info["loop_iterations"],
+             ms_per_iteration=info["seconds"] * 1e3
+             / max(info["loop_iterations"], 1),
              rates=list(result.rates),
              completion_rate=[float(v) for v in result.completion_rate[h_i]],
              worst_type_rate=[float(v) for v in result.worst_type_rate[h_i]],
@@ -266,10 +407,11 @@ def run_main_path(device, reps: int, n_tasks: int) -> dict:
              for h in fused.heuristics}
     expect = {"map_decide": sum(steps.values()),
               "evict_stats": steps["FELARE"],
-              "phase1_map": res_p1.run_info["ELARE"]["loop_iterations"]}
+              "phase1_map": res_p1.run_info["ELARE"]["loop_iterations"],
+              "balance_scan": 0}
     emit("main", launches=counts, expected=expect)
     for k, v in expect.items():
-        require(v > 0 and counts[k] == v,
+        require(counts[k] == v and (v > 0 or k == "balance_scan"),
                 f"{k}: {counts[k]} launches, {v} batched events")
 
     # -- parity: plain path on the card, same traces ----------------------
@@ -297,15 +439,133 @@ def run_main_path(device, reps: int, n_tasks: int) -> dict:
     return counts
 
 
-def profile_main_path(device, reps: int, n_tasks: int, steps: int = 64):
-    """Where the time of one batched event goes: the first ``steps``
-    iterations of the fused FELARE and the phase1 ELARE sweeps under
-    ``torch.profiler``."""
+def run_federated_path(device, reps: int) -> dict:
+    """The federated sweeps on the fused kernels: paper_x8 (block fold)
+    with FELARE + fair_spill and ELARE + least_queued, tiered_x4 (masked
+    fold) with FELARE + least_queued. Each run's launch counts, zeroed
+    just before it, must show one map_decide and one balance_scan per
+    batched event, whatever the site count. Then the parity of the
+    FELARE runs with the plain path on the card and with the CPU."""
+    from repro_torch import scenarios
+    from repro_torch.core.types import Trace
+    from repro_torch.experiments import SweepSpec, run_sweep
+
+    def sweep(system, rates, n_reps, n_tasks, heuristic, dispatcher,
+              traces, fused=True, dev=device):
+        return run_sweep(SweepSpec(
+            system=system, rates=rates, reps=n_reps, n_tasks=n_tasks,
+            heuristics=(heuristic,), seed=0, use_fused_map=fused,
+            dispatcher=dispatcher), traces=traces, device=dev)
+
+    def stack(system, rates, n_reps, n_tasks):
+        eet = scenarios.get_fleet(system).build().eet
+        return scenarios.DEFAULT.stack(0, rates, n_reps, n_tasks, eet,
+                                       device=device)
+
+    x8 = ("paper_x8", FED_RATES, reps, FED_TASKS)
+    tiered = ("tiered_x4", TIER_RATES, TIER_REPS, TIER_TASKS)
+    traces = {x8[0]: stack(*x8), tiered[0]: stack(*tiered)}
+    runs = ((x8, "FELARE", "fair_spill"), (x8, "ELARE", "least_queued"),
+            (tiered, "FELARE", "least_queued"))
+    total, fused = {}, {}
+    for cfg, h, d in runs:
+        label = f"{cfg[0]} {h} {d}"
+        reset_counts()
+        res = sweep(*cfg, h, d, traces[cfg[0]])
+        counts = read_counts()
+        summarize(res, label, phase="fed")
+        steps = res.run_info[h]["loop_iterations"]
+        expect = {"map_decide": steps, "balance_scan": steps,
+                  "evict_stats": steps if h == "FELARE" else 0,
+                  "phase1_map": 0}
+        emit("fed", run=label, launches=counts, expected=expect)
+        require(steps > 0, f"{label}: no batched event")
+        for k, v in expect.items():
+            require(counts[k] == v,
+                    f"{label}: {k}: {counts[k]} launches, {v} expected")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        fused[label] = (cfg, h, d, res)
+
+    # -- parity: plain path on the card, same traces ----------------------
+    plain_seconds = {}
+    for label in ("paper_x8 FELARE fair_spill",
+                  "tiered_x4 FELARE least_queued"):
+        cfg, h, d, res = fused[label]
+        plain = sweep(*cfg, h, d, traces[cfg[0]], fused=False)
+        same_counts(res.metrics, plain.metrics,
+                    f"{label}: fused vs plain (card)")
+        plain_seconds[label] = plain.run_info[h]["seconds"]
+
+    # -- parity: a 2 x 2 subset, each trace cut short, on the CPU ----------
+    sub = Trace(*(x[:2, :2, :CPU_SUBSET_TASKS]
+                  for x in traces["paper_x8"]))
+    cfg = ("paper_x8", FED_RATES[:2], 2, CPU_SUBSET_TASKS)
+    card = sweep(*cfg, "FELARE", "fair_spill", sub)
+    cpu = sweep(*cfg, "FELARE", "fair_spill",
+                Trace(*(x.cpu() for x in sub)), dev="cpu")
+    same_counts(cpu.metrics, card.metrics, "fed: card vs CPU subset",
+                energy_rel=1e-5)
+    emit("fed_parity", plain_on_card="identical counters and makespans",
+         cpu_subset="identical counters, energies within rel 1e-5",
+         cpu_subset_shape={"rates": list(cfg[1]), "reps": 2,
+                           "tasks": CPU_SUBSET_TASKS},
+         plain_seconds=plain_seconds,
+         cpu_seconds=cpu.run_info["FELARE"]["seconds"])
+    return total
+
+
+def profile_sim(label: str, sim, flat, steps: int) -> float:
+    """Profile ``steps`` batched iterations of ``sim`` on ``flat`` after a
+    warm-up; emit where the time goes and return the kernels launched per
+    iteration."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    sim(flat)                                            # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim(flat)
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim(flat)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    per_iteration = sum(e.count for e in kernels) / steps
+    emit("profile", run=label, replicates=int(flat.arrival.shape[0]),
+         iterations=steps,
+         wall_ms_per_iteration=wall_plain * 1e3 / steps,
+         wall_ms_per_iteration_profiled=wall * 1e3 / steps,
+         device_busy_ms_per_iteration=busy_us * 1e-3 / steps,
+         device_idle_share=1.0 - busy_us * 1e-6 / wall_plain,
+         kernels_per_iteration=per_iteration,
+         top_kernels=[{"name": e.key[:60],
+                       "us_per_launch": e.self_device_time_total
+                       / e.count, "launches": e.count} for e in top],
+         ours_us_per_launch={
+             name: next((e.self_device_time_total / e.count
+                         for e in kernels if f"{name}_kernel" in e.key),
+                        None)
+             for name in KERNEL_SOURCES})
+    return per_iteration
+
+
+def profile_main_path(device, reps: int, n_tasks: int, fed_reps: int,
+                      steps: int = 64):
+    """Where the time of one batched event goes: the first ``steps``
+    iterations of the flat fused FELARE and phase1 ELARE sweeps, then of
+    the federated fused FELARE + fair_spill sweep on paper_x2 and on
+    paper_x8, whose kernels per iteration must agree within 2."""
     from repro_torch import scenarios
-    from repro_torch.core import api, engine, policy
+    from repro_torch.core import api, dispatch, engine, policy
 
     system = api.paper_system()
     traces = scenarios.DEFAULT.stack(0, RATES, reps, n_tasks, system.eet,
@@ -318,38 +578,25 @@ def profile_main_path(device, reps: int, n_tasks: int, steps: int = 64):
         sim = engine.make_simulator(
             pol, system.as_torch(device), queue_size=system.queue_size,
             max_steps=steps)
-        sim(flat)                                        # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sim(flat)
-        torch.cuda.synchronize()
-        wall_plain = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            sim(flat)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0]
-        busy_us = sum(e.self_device_time_total for e in kernels)
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-        emit("profile", run=label, replicates=int(flat.arrival.shape[0]),
-             iterations=steps,
-             wall_ms_per_iteration=wall_plain * 1e3 / steps,
-             wall_ms_per_iteration_profiled=wall * 1e3 / steps,
-             device_busy_ms_per_iteration=busy_us * 1e-3 / steps,
-             device_idle_share=1.0 - busy_us * 1e-6 / wall_plain,
-             kernels_per_iteration=sum(e.count for e in kernels) / steps,
-             top_kernels=[{"name": e.key[:60],
-                           "us_per_launch": e.self_device_time_total
-                           / e.count, "launches": e.count} for e in top],
-             ours_us_per_launch={
-                 name: next((e.self_device_time_total / e.count
-                             for e in kernels if f"{name}_kernel" in e.key),
-                            None)
-                 for name in KERNEL_SOURCES})
+        profile_sim(label, sim, flat, steps)
+
+    per_iteration = {}
+    for name, sites in (("paper_x2", 2), ("paper_x8", 8)):
+        system = scenarios.get_fleet(name).build()
+        traces = scenarios.DEFAULT.stack(
+            0, tuple(sites * r for r in RATES), fed_reps, FED_TASKS,
+            system.eet, device=device)
+        flat = type(traces)(*(x.reshape((-1,) + x.shape[2:])
+                              for x in traces))
+        sim = engine.make_simulator(
+            policy.with_fused_map("FELARE"), system.as_torch(device),
+            queue_size=system.queue_size, max_steps=steps,
+            dispatcher=dispatch.with_fused_balance("fair_spill"),
+            site_of_machine=system.site_of_machine)
+        per_iteration[name] = profile_sim(
+            f"FELARE fair_spill fused_map {name}", sim, flat, steps)
+    require(abs(per_iteration["paper_x2"] - per_iteration["paper_x8"]) <= 2,
+            f"kernels per iteration grow with the sites: {per_iteration}")
 
 
 # --------------------------------------------------------------------------
@@ -446,8 +693,60 @@ def time_kernels(device, launches: dict, errs: dict) -> list:
         emit("times", kernel=name, bytes=moved, operations=ops,
              eager_ms=time_ms(kern, 200), eager_plain_ms=time_ms(plain, 50),
              **{k: rows[-1][k] for k in ("ms", "plain_ms", "bound_ms")})
+    rows.append(time_balance_scan(device, launches, errs))
     torch.cuda.synchronize()
     return rows
+
+
+def time_balance_scan(device, launches: dict, errs: dict) -> dict:
+    """``balance_scan`` at the federated path's shape (B = 150 replicates,
+    N = 4000 tasks, F = 8 sites) on the data that path gives it: one
+    admission per replicate per event. Times per call by CUDA events after
+    warm-up (``ms``, ``plain_ms``), device time by ``torch.profiler``, and
+    the same with every task new (the serial walk's longest case)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import map_fused
+
+    shape = BALANCE_SHAPES[0]
+    B, N, F = shape["B"], shape["N"], shape["F"]
+    load0, _, target, home = balance_inputs(**shape, density=0.0,
+                                            loads="mixed", seed=3,
+                                            device=device)
+    load0 = load0 % 1_000_000                          # no dead site
+    one = np.zeros((B, N), bool)
+    one[np.arange(B), np.random.default_rng(4).integers(0, N, B)] = True
+    fresh = torch.as_tensor(one, device=device)
+    args = (load0, fresh, target, home)
+    every = (load0, torch.ones_like(fresh), target, home)
+
+    def kern(x=args):
+        return map_fused.balance_scan(*x)
+
+    def plain():
+        return map_fused.balance_scan_plain(*args, max_new=1)
+
+    moved = nbytes(*args, kern())
+    ops = B * N + int(fresh.sum()) * F                  # selects + argmins
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    row = {"name": "balance_scan", "route": "cuda",
+           "source": KERNEL_SOURCES["balance_scan"][0],
+           "replaces": KERNEL_SOURCES["balance_scan"][1],
+           "launches": launches["balance_scan"],
+           "max_abs_err": errs["balance_scan"],
+           "ms": time_ms(kern, 200), "plain_ms": time_ms(plain, 50),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None}
+    emit("times", kernel="balance_scan", bytes=moved, operations=ops,
+         new_tasks=int(fresh.sum()), device_ms=device_ms(kern, 100),
+         plain_device_ms=device_ms(plain, 20),
+         ms_all_new=time_ms(lambda: kern(every), 20),
+         device_ms_all_new=device_ms(lambda: kern(every), 20),
+         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms")})
+    return row
 
 
 def main(argv=None) -> int:
@@ -456,6 +755,9 @@ def main(argv=None) -> int:
                     help="replicates per rate on the main path (default 30)")
     ap.add_argument("--tasks", type=int, default=2000,
                     help="tasks per trace on the main path (default 2000)")
+    ap.add_argument("--fed-reps", type=int, default=30,
+                    help="replicates per rate on the federated path "
+                         "(default 30)")
     args = ap.parse_args(argv)
 
     import torch
@@ -482,12 +784,21 @@ def main(argv=None) -> int:
          registers_per_thread={k: [r[0], r[-1]] for k, r in regs.items()})
 
     errs = check_kernels(device)
+    check_federation_kernels(device, errs)
     if args.reps != 30 or args.tasks != 2000:
         emit("cut", reps=args.reps, tasks=args.tasks,
-             note="main path run below paper scale (30 reps x 2000 tasks)")
-    launches = run_main_path(device, args.reps, args.tasks)
-    profile_main_path(device, args.reps, args.tasks)
+             note="flat path run below paper scale (30 reps x 2000 tasks)")
+    if args.fed_reps != 30:
+        emit("cut", fed_reps=args.fed_reps,
+             note="federated path run below paper scale (30 reps)")
+    flat = run_main_path(device, args.reps, args.tasks)
+    fed = run_federated_path(device, args.fed_reps)
+    launches = {k: flat[k] + fed[k] for k in flat}
+    profile_main_path(device, args.reps, args.tasks, args.fed_reps)
     rows = time_kernels(device, launches, errs)
+    for row in rows:
+        row["launches_by_path"] = {"flat": flat[row["name"]],
+                                   "federated": fed[row["name"]]}
     emit("done", seconds=time.perf_counter() - t_start)
 
     print(smi)

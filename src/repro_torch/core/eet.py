@@ -1,14 +1,20 @@
-"""Expected Execution Time (EET) tables and actual-runtime sampling.
+"""Expected Execution Time (EET) tables, their lookups, and actual-runtime
+sampling.
 
 Counterpart of ``repro/core/eet.py``: the paper's Table I, the Sec. VI-A
 power profiles and the AWS scenario tables, copied so that the port
 imports nothing of the JAX package. Randomness comes from a
 ``numpy.random.Generator``; it cannot reproduce JAX's threefry streams,
 so sampling is held to the reference in distribution only.
+
+A table on the device is shared by a batch, (S, M), or given per row,
+(B, S, M), as the engine does for the federation's site views;
+:func:`type_rows` and :func:`eet_at` read both.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # --- Table I of the paper (4 task types x 4 machine types, seconds) ---------
 TABLE_I = np.array(
@@ -52,3 +58,28 @@ def sample_actual_exec(rng: np.random.Generator, eet, task_type,
     shape = 1.0 / cv_run**2
     draw = rng.standard_gamma(shape, means.shape, dtype=np.float32)
     return (draw * (means * np.float32(cv_run**2))).astype(np.float32)
+
+
+def _row_index(eet, idx):
+    """(B, 1, ...) row numbers of a per-row table, shaped to broadcast
+    against ``idx`` (B, ...)."""
+    return torch.arange(eet.shape[0], device=eet.device).reshape(
+        (-1,) + (1,) * (idx.dim() - 1))
+
+
+def type_rows(eet, task_type):
+    """(B, ..., M) EET row of each task's type: ``eet[task_type]`` of the
+    shared (S, M) table, or ``eet[b, task_type[b, ...]]`` of per-row
+    (B, S, M) tables. ``task_type`` is (B, ...)."""
+    if eet.dim() == 2:
+        return eet[task_type]
+    return eet[_row_index(eet, task_type), task_type]
+
+
+def eet_at(eet, task_type, machine):
+    """``eet[task_type, machine]`` of the shared table, or ``eet[b,
+    task_type, machine]`` of per-row tables; the indices broadcast and
+    lead with B."""
+    if eet.dim() == 2:
+        return eet[task_type, machine]
+    return eet[_row_index(eet, task_type), task_type, machine]

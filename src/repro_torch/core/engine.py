@@ -1,8 +1,8 @@
 """Discrete-event simulation engine for the HEC system, batched, in PyTorch.
 
-Counterpart of ``repro/core/engine.py`` for the flat, single-site system
-(no faults, dispatch, network or observers). Semantics follow Sec. III
-of the paper and the reference op for op:
+Counterpart of ``repro/core/engine.py`` for the flat system and the
+multi-site federation (no faults, network or observers). Semantics follow
+Sec. III of the paper and the reference op for op:
 
   * mapping events fire on task arrival and task completion, plus a
     progress event at the earliest pending deadline;
@@ -13,22 +13,36 @@ of the paper and the reference op for op:
 
 The reference runs one ``lax.while_loop`` per trace and ``vmap``s it; the
 port runs one Python loop over a batch of B traces. Each iteration runs
-the stages finalize -> admit -> map -> start on every replicate, then
-keeps the new state only where the replicate is still active (its next
-event time is finite and it has taken fewer than ``8 N + 64`` steps):
+the stages finalize -> admit -> dispatch -> map -> start on every
+replicate, then keeps the new state only where the replicate is still
+active (its next event time is finite and it has taken fewer than
+``8 N + 64`` steps):
 ``where(active, new, old)`` on every field, ``steps`` included, so a
 finished replicate stays frozen as under ``vmap``. The host reads
 ``active.any()`` once every :data:`CHECK_EVERY` iterations; the extra
 iterations are harmless because inactive replicates are frozen.
+
+A federation partitions the M machines into F sites. The dispatch stage
+gives each newly-admitted task a site, once; the map stage then runs the
+policy once per iteration over B * F rows, row ``b * F + f`` being site
+``f`` of replicate ``b`` (the counterpart of the reference's ``vmap``
+over sites), so the launches per iteration do not grow with F. Sites
+that are equal contiguous blocks of m machines fold by reshaping the
+(B, M) state to (B * F, m); any other partition folds into (B * F, M)
+views that mask the other sites' machines out. With one site both stages
+are the flat path's.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from repro_torch.core import fairness
+from repro_torch.core import dispatch, fairness
 from repro_torch.core.device import resolve_device
+from repro_torch.core.dispatch.base import site_minima
+from repro_torch.core.equations import BIG
 from repro_torch.core.policy import MachineView
 from repro_torch.core.policy.base import set_masked
 from repro_torch.core.types import (
@@ -39,10 +53,12 @@ from repro_torch.core.types import (
     QUEUED,
     RUNNING,
     UNARRIVED,
+    MapAction,
     Metrics,
     SimState,
     SystemArrays,
     Trace,
+    site_membership,
 )
 
 INF = float("inf")
@@ -62,7 +78,10 @@ def _count_by_type(counts, task_type, mask):
 
 
 def _init_state(trace: Trace, n_machines: int, queue_size: int,
-                n_types: int) -> SimState:
+                n_types: int, n_sites: int = 1) -> SimState:
+    """The state before the first event. With one site every task's site
+    is 0 from the start (the reference gives it 0 at admission); in a
+    federation it is -1 until the task is dispatched."""
     B, n = trace.arrival.shape
     M, Q, S = n_machines, queue_size, n_types
     dev = trace.arrival.device
@@ -74,6 +93,7 @@ def _init_state(trace: Trace, n_machines: int, queue_size: int,
     return SimState(
         now=full((B,), 0.0, f32),
         status=full((B, n), UNARRIVED, i64),
+        site=full((B, n), 0 if n_sites == 1 else -1, i64),
         run_task=full((B, M), -1, i64),
         run_start=full((B, M), 0.0, f32),
         run_end_act=full((B, M), INF, f32),
@@ -140,23 +160,172 @@ def _stage_admit(st: SimState, trace: Trace):
     )
 
 
+class _Fold(NamedTuple):
+    """How a federation's F site views of each replicate fold into the
+    batch (rows ``b * F + f``). Static per simulator."""
+
+    n_sites: int
+    block: bool                # equal contiguous machine blocks
+    owner: torch.Tensor        # (M,) int64 site of each machine
+    members: torch.Tensor      # (F, M) bool
+    site_range: torch.Tensor   # (F, 1) int64 site ids
+    sysarr: SystemArrays       # per-site tables, (F, S, w) and (F, w)
+    eet_min_site: torch.Tensor  # (S, F) each type's fastest EET per site
+
+
+class _SiteRows(NamedTuple):
+    """The folded arrays that do not change during a simulation."""
+
+    task_type: torch.Tensor    # (B * F, N)
+    deadline: torch.Tensor     # (B * F, N)
+    sysarr: SystemArrays       # eet (B * F, S, w), p_dyn (B * F, w) or (M,)
+
+
+def _make_fold(sysarr: SystemArrays, sites: tuple) -> _Fold:
+    """The fold of a partition: the block fold when every site is an
+    equal contiguous block of machines (the reference's test,
+    ``repro/core/engine.py:614-618``), else the masked fold. The choice
+    matters beyond speed: the random nominator hashes into the view's
+    width."""
+    S, M = sysarr.eet.shape
+    F = max(sites) + 1
+    dev = sysarr.eet.device
+    owner = torch.as_tensor(sites, dtype=torch.int64, device=dev)
+    members = torch.as_tensor(site_membership(sites), device=dev)
+    m = M // F
+    block = M % F == 0 and bool(
+        (np.asarray(sites) == np.repeat(np.arange(F), m)).all())
+    if block:
+        tables = SystemArrays(
+            eet=sysarr.eet.reshape(S, F, m).transpose(0, 1).contiguous(),
+            p_dyn=sysarr.p_dyn.reshape(F, m),
+            p_idle=sysarr.p_idle.reshape(F, m))
+    else:
+        tables = sysarr._replace(
+            eet=torch.where(members[:, None, :], sysarr.eet[None], BIG))
+    return _Fold(F, block, owner, members,
+                 torch.arange(F, device=dev)[:, None], tables,
+                 site_minima(sysarr.eet, members))
+
+
+def _site_rows(fold: _Fold, trace: Trace) -> _SiteRows:
+    """Build the folded task arrays and tables once per simulation."""
+    B = trace.arrival.shape[0]
+    F = fold.n_sites
+    tables = fold.sysarr
+    eet = tables.eet.repeat(B, 1, 1)
+    if fold.block:
+        tables = SystemArrays(eet, tables.p_dyn.repeat(B, 1),
+                              tables.p_idle.repeat(B, 1))
+    else:
+        tables = tables._replace(eet=eet)
+    return _SiteRows(trace.task_type.repeat_interleave(F, dim=0),
+                     trace.deadline.repeat_interleave(F, dim=0), tables)
+
+
+def _max_admissions(arrival: torch.Tensor) -> int:
+    """The most tasks one event can admit, read once per simulation.
+
+    An event never passes the earliest arrival still to come, so the
+    tasks one event admits share one arrival time: the largest count of
+    equal arrival times in a replicate bounds them, and with them the
+    tasks the dispatch stage finds new.
+    """
+    a = arrival.sort(dim=1).values
+    B, n = a.shape
+    first = torch.ones_like(a, dtype=torch.bool)
+    first[:, 1:] = a[:, 1:] != a[:, :-1]
+    group = first.cumsum(1) - 1 + n * torch.arange(
+        B, device=a.device)[:, None]
+    return int(torch.bincount(group.flatten(), minlength=B * n).max())
+
+
+def _stage_dispatch(st: SimState, trace: Trace, sysarr: SystemArrays,
+                    dispatcher, fold: _Fold, fairness_factor: float,
+                    max_new: int):
+    """Give newly-admitted tasks their site (dispatch-once).
+
+    A task is dispatched at the first event where it is PENDING and still
+    siteless; its site never changes afterwards. The context reads the
+    post-admit queue lengths and running machines: tasks dispatched but
+    still pending do not count toward a site's load.
+    """
+    new = (st.status == PENDING) & (st.site < 0)
+    ctx = dispatch.DispatchContext(
+        now=st.now, unassigned=new, task_type=trace.task_type,
+        deadline=trace.deadline, qlen=st.qlen, running=st.run_task >= 0,
+        completed=st.completed, arrived=st.arrived, eet=sysarr.eet,
+        site_of_machine=fold.owner, n_sites=fold.n_sites,
+        fairness_factor=fairness_factor, eet_min_site=fold.eet_min_site,
+        max_new=max_new)
+    sites = dispatcher.dispatch(ctx).clamp(0, fold.n_sites - 1)
+    return st._replace(site=torch.where(new, sites, st.site))
+
+
 def _map_action(st: SimState, trace: Trace, sysarr: SystemArrays,
-                select_fn: Callable, fairness_factor: float):
-    """The :class:`MapAction` of one batched mapping event (pre-apply)."""
+                select_fn: Callable, fairness_factor: float,
+                fold: Optional[_Fold] = None,
+                rows: Optional[_SiteRows] = None) -> MapAction:
+    """The :class:`MapAction` of one batched mapping event (pre-apply).
+
+    With a federation the policy runs once over the B * F site views and
+    the per-site actions are combined: machine ``m`` takes its owner's
+    ``assign``/``queue_drop`` entry, and task ``k`` its own site's
+    ``drop`` entry, only once it has a site. ``suffered`` is computed
+    once per replicate and shared by its F rows.
+    """
     suffered = fairness.suffered_types(st.completed, st.arrived,
                                        fairness_factor)
     now = st.now[:, None]
     avail_base = torch.maximum(
         torch.where(st.run_task >= 0, st.run_end_exp, now), now)
-    view = MachineView(avail_base=avail_base, queue=st.queue, qlen=st.qlen)
-    return select_fn(st.now, st.status == PENDING, trace.task_type,
-                     trace.deadline, view, sysarr, suffered)
+    pending = st.status == PENDING
+    if fold is None:
+        view = MachineView(avail_base=avail_base, queue=st.queue,
+                           qlen=st.qlen)
+        return select_fn(st.now, pending, trace.task_type, trace.deadline,
+                         view, sysarr, suffered)
+
+    B, M, Q = st.queue.shape
+    n = pending.shape[1]
+    F = fold.n_sites
+    at_site = (pending[:, None, :]
+               & (st.site[:, None, :] == fold.site_range)).reshape(B * F, n)
+    if fold.block:
+        w = M // F
+        view = MachineView(avail_base=avail_base.reshape(B * F, w),
+                           queue=st.queue.reshape(B * F, w, Q),
+                           qlen=st.qlen.reshape(B * F, w))
+    else:
+        mem = fold.members
+        view = MachineView(
+            avail_base=torch.where(mem, avail_base[:, None, :],
+                                   BIG).reshape(B * F, M),
+            queue=torch.where(mem[:, :, None], st.queue[:, None],
+                              -1).reshape(B * F, M, Q),
+            qlen=torch.where(mem, st.qlen[:, None, :], Q).reshape(B * F, M))
+    act = select_fn(st.now.repeat_interleave(F), at_site, rows.task_type,
+                    rows.deadline, view, rows.sysarr,
+                    suffered.repeat_interleave(F, dim=0))
+    drop = (act.drop.reshape(B, F, n).gather(
+        1, st.site.clamp(0, F - 1)[:, None, :])[:, 0] & (st.site >= 0))
+    if fold.block:
+        return MapAction(act.assign.reshape(B, M), drop,
+                         act.queue_drop.reshape(B, M, Q))
+    assign = act.assign.reshape(B, F, M).gather(
+        1, fold.owner.expand(B, 1, M))[:, 0]
+    queue_drop = act.queue_drop.reshape(B, F, M, Q).gather(
+        1, fold.owner[:, None].expand(B, 1, M, Q))[:, 0]
+    return MapAction(assign, drop, queue_drop)
 
 
 def _stage_map(st: SimState, trace: Trace, sysarr: SystemArrays,
-               select_fn: Callable, fairness_factor: float, n_types: int):
+               select_fn: Callable, fairness_factor: float, n_types: int,
+               fold: Optional[_Fold] = None,
+               rows: Optional[_SiteRows] = None):
     """Run the mapping policy and apply its action."""
-    action = _map_action(st, trace, sysarr, select_fn, fairness_factor)
+    action = _map_action(st, trace, sysarr, select_fn, fairness_factor,
+                         fold, rows)
     return _apply_action(st, trace, action, n_types)
 
 
@@ -236,22 +405,30 @@ def _freeze(active: torch.Tensor, new: SimState, old: SimState) -> SimState:
     return SimState(*(pick(a, b) for a, b in zip(new, old)))
 
 
-def make_simulator(select_fn: Callable, sysarr: SystemArrays, *,
-                   queue_size: int, fairness_factor: float = 1.0,
-                   max_steps: int | None = None) -> Callable:
-    """Build ``simulate(trace) -> Metrics`` for one mapping policy.
-
-    ``trace`` is a batched :class:`Trace` (leaves (B, N) and (B, N, M))
-    on the device of ``sysarr``; the returned Metrics carry the leading
-    B. ``select_fn(now, pending, task_type, deadline, view, sysarr,
-    suffered)`` is any policy of :mod:`repro_torch.core.policy`.
-    """
+def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
+               queue_size: int, fairness_factor: float = 1.0,
+               max_steps: int | None = None, dispatcher=None,
+               site_of_machine: tuple | None = None) -> Callable:
+    """``run(trace) -> SimState``: the event loop of
+    :func:`make_simulator`, returning the final batched state."""
     S, M = sysarr.eet.shape
+    sites = ((0,) * M if site_of_machine is None
+             else tuple(int(s) for s in site_of_machine))
+    if len(sites) != M:
+        raise ValueError(
+            f"site_of_machine has {len(sites)} entries for {M} machines")
+    n_sites = max(sites) + 1
+    fold = _make_fold(sysarr, sites) if n_sites > 1 else None
+    dispatcher = dispatch.resolve(dispatcher)
 
-    def simulate(trace: Trace) -> Metrics:
+    def run(trace: Trace) -> SimState:
         n = trace.arrival.shape[1]
         cap = max_steps if max_steps is not None else 8 * n + 64
-        st = _init_state(trace, M, queue_size, S)
+        st = _init_state(trace, M, queue_size, S, n_sites)
+        rows, max_new = None, 0
+        if fold is not None:
+            rows = _site_rows(fold, trace)
+            max_new = _max_admissions(trace.arrival)
         it = 0
         while True:
             t = _next_event_time(st, trace)
@@ -261,27 +438,61 @@ def make_simulator(select_fn: Callable, sysarr: SystemArrays, *,
             new = st._replace(now=torch.maximum(t, st.now))
             new = _stage_finalize(new, trace, sysarr)
             new = _stage_admit(new, trace)
+            if fold is not None:
+                new = _stage_dispatch(new, trace, sysarr, dispatcher, fold,
+                                      fairness_factor, max_new)
             new = _stage_map(new, trace, sysarr, select_fn, fairness_factor,
-                             S)
+                             S, fold, rows)
             new = _stage_start(new, trace, sysarr)
             new = new._replace(steps=new.steps + 1)
             st = _freeze(active, new, st)
             it += 1
             COUNTS["loop_iterations"] += 1
-        makespan = st.now
-        e_idle = (sysarr.p_idle * (makespan[:, None] - st.busy_time)).sum(1)
-        return Metrics(
-            completed_by_type=st.completed,
-            missed_by_type=st.missed,
-            cancelled_by_type=st.cancelled,
-            arrived_by_type=st.arrived,
-            energy_dynamic=st.e_dyn,
-            energy_wasted=st.e_wasted,
-            energy_idle=e_idle,
-            makespan=makespan,
-        )
+        return st
+
+    return run
+
+
+def make_simulator(select_fn: Callable, sysarr: SystemArrays, *,
+                   queue_size: int, fairness_factor: float = 1.0,
+                   max_steps: int | None = None, dispatcher=None,
+                   site_of_machine: tuple | None = None) -> Callable:
+    """Build ``simulate(trace) -> Metrics`` for one mapping policy.
+
+    ``trace`` is a batched :class:`Trace` (leaves (B, N) and (B, N, M))
+    on the device of ``sysarr``; the returned Metrics carry the leading
+    B. ``select_fn(now, pending, task_type, deadline, view, sysarr,
+    suffered)`` is any policy of :mod:`repro_torch.core.policy`.
+
+    ``site_of_machine`` is the static federation partition (``None`` =
+    one site) and ``dispatcher`` the :mod:`repro_torch.core.dispatch`
+    rule that gives newly-admitted tasks their site (``None`` =
+    ``sticky``; unused with one site).
+    """
+    run = _make_loop(select_fn, sysarr, queue_size=queue_size,
+                     fairness_factor=fairness_factor, max_steps=max_steps,
+                     dispatcher=dispatcher, site_of_machine=site_of_machine)
+
+    def simulate(trace: Trace) -> Metrics:
+        return _metrics(run(trace), sysarr)
 
     return simulate
+
+
+def _metrics(st: SimState, sysarr: SystemArrays) -> Metrics:
+    """The :class:`Metrics` of a final batched state."""
+    makespan = st.now
+    e_idle = (sysarr.p_idle * (makespan[:, None] - st.busy_time)).sum(1)
+    return Metrics(
+        completed_by_type=st.completed,
+        missed_by_type=st.missed,
+        cancelled_by_type=st.cancelled,
+        arrived_by_type=st.arrived,
+        energy_dynamic=st.e_dyn,
+        energy_wasted=st.e_wasted,
+        energy_idle=e_idle,
+        makespan=makespan,
+    )
 
 
 def _to_device(trace: Trace, device) -> Trace:
@@ -304,26 +515,39 @@ def _resolve_policy(heuristic, use_fused_map: bool, use_fused_phase1: bool):
     return pol
 
 
+def _resolve_dispatcher(dispatcher, use_fused_map: bool):
+    disp = dispatch.resolve(dispatcher)
+    return dispatch.with_fused_balance(disp) if use_fused_map else disp
+
+
 def simulate_batch(traces: Trace, spec, heuristic, *, max_steps=None,
-                   use_fused_map: bool = False,
+                   dispatcher=None, use_fused_map: bool = False,
                    use_fused_phase1: bool = False, device=None) -> Metrics:
     """Simulate a batch of traces (leaves (B, N), (B, N, M)) under one
     heuristic (a registered name or a policy object) on ``device``
-    (``None`` = the CUDA device). Returns Metrics with leading B."""
+    (``None`` = the CUDA device). Returns Metrics with leading B.
+
+    ``spec.site_of_machine`` (if set) partitions the machines into sites
+    served through ``dispatcher`` (a registered name or a dispatcher;
+    ``None`` = ``sticky``). ``use_fused_map`` runs the map decision and
+    the dispatcher's balance walk through the kernels.
+    """
     dev = resolve_device(device)
     sim = make_simulator(
         _resolve_policy(heuristic, use_fused_map, use_fused_phase1),
         spec.as_torch(dev), queue_size=spec.queue_size,
-        fairness_factor=float(spec.fairness_factor), max_steps=max_steps)
+        fairness_factor=float(spec.fairness_factor), max_steps=max_steps,
+        dispatcher=_resolve_dispatcher(dispatcher, use_fused_map),
+        site_of_machine=spec.site_of_machine)
     return sim(_to_device(traces, dev))
 
 
 def simulate(trace: Trace, spec, heuristic, *, max_steps=None,
-             use_fused_map: bool = False, use_fused_phase1: bool = False,
-             device=None) -> Metrics:
+             dispatcher=None, use_fused_map: bool = False,
+             use_fused_phase1: bool = False, device=None) -> Metrics:
     """One trace (leaves (N,), (N, M)), one SystemSpec, one heuristic."""
     batched = Trace(*(x[None] for x in trace))
     m = simulate_batch(batched, spec, heuristic, max_steps=max_steps,
-                       use_fused_map=use_fused_map,
+                       dispatcher=dispatcher, use_fused_map=use_fused_map,
                        use_fused_phase1=use_fused_phase1, device=device)
     return Metrics(*(x[0] for x in m))

@@ -55,7 +55,7 @@ class MinEnergyFeasible:
             feas = (equations.feasible(s, e, d)
                     & ctx.pending[:, :, None] & ctx.qfree[:, None, :])
             ec = equations.expected_energy(s, e, d,
-                                           ctx.sysarr.p_dyn[None, None, :])
+                                           ctx.sysarr.p_dyn.unsqueeze(-2))
             best_m, best_ec = _masked_argmin(feas, ec)
         return Nomination(best_m, best_ec, best_ec < BIG)
 

@@ -1,10 +1,11 @@
 """Scheduling context: everything a mapping policy may look at, computed once.
 
 Counterpart of ``repro/core/policy/context.py``, batched: every field
-carries a leading dim B (one mapping event per replicate), and the EET
-table and power profiles are shared by the batch. Derived grids are
-``cached_property``s, so one event computes each grid once however many
-policy components read it.
+carries a leading dim B (one mapping event per replicate). The EET table
+and the power profiles are either shared by the batch ((S, M) and (M,))
+or given per row ((B, S, M) and (B, M)), as the engine does for the
+federation's site views. Derived grids are ``cached_property``s, so one
+event computes each grid once however many policy components read it.
 
 Shapes: B replicates, N tasks, M machines, Q local-queue slots, S types.
 """
@@ -16,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.eet import eet_at, type_rows
 from repro_torch.core.equations import BIG, seq_sum
 from repro_torch.core.types import SystemArrays
 
@@ -37,7 +39,7 @@ def queued_eet(view: MachineView, task_type, sysarr: SystemArrays):
     idx = view.queue.clamp(min=0).reshape(B, M * Q)
     ttype = torch.where(occ, task_type.gather(1, idx).reshape(B, M, Q), 0)
     cols = torch.arange(M, device=ttype.device)[None, :, None]
-    e = sysarr.eet[ttype, cols]
+    e = eet_at(sysarr.eet, ttype, cols)
     return torch.where(occ, e, torch.zeros_like(e))
 
 
@@ -65,7 +67,7 @@ class SchedContext:
 
     @property
     def n_machines(self) -> int:
-        return self.sysarr.eet.shape[1]
+        return self.sysarr.eet.shape[-1]
 
     @property
     def queue_slots(self) -> int:
@@ -98,7 +100,7 @@ class SchedContext:
     def exec_grid(self):
         """(B, N, M) f32 — expected execution time of each task on each
         machine."""
-        return self.sysarr.eet[self.task_type]
+        return type_rows(self.sysarr.eet, self.task_type)
 
     @functools.cached_property
     def start_grid(self):
@@ -118,8 +120,12 @@ class SchedContext:
 
     @functools.cached_property
     def min_exec(self):
-        """(B, N) f32 — each task's execution time on its fastest machine."""
-        return self.sysarr.eet.min(dim=1).values[self.task_type]
+        """(B, N) f32 — each task's execution time on its fastest machine
+        (of the row's own table, so a site view sees only its site)."""
+        fastest = self.sysarr.eet.min(dim=-1).values      # (S,) or (B, S)
+        if fastest.dim() == 1:
+            return fastest[self.task_type]
+        return fastest.gather(1, self.task_type)
 
     @functools.cached_property
     def hopeless(self):

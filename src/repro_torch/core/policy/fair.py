@@ -12,6 +12,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import equations
+from repro_torch.core.eet import eet_at, type_rows
 from repro_torch.core.equations import seq_sum
 from repro_torch.core.policy.base import (
     PolicyDesc,
@@ -65,7 +66,7 @@ def _plan_eviction_from_stats(ctx: SchedContext, task_feas_now, min_exec):
     dl_tgt = _take(ctx.deadline, tgt)
 
     # fastest (best-matching) machine for the target: min expected completion.
-    comp_tgt = ctx.avail + eet[tt_tgt]                             # (B, M)
+    comp_tgt = ctx.avail + type_rows(eet, tt_tgt)                  # (B, M)
     mstar = comp_tgt.argmin(dim=1)                                 # (B,)
 
     # evict non-suffered victims tail-first until the target fits on mstar.
@@ -76,7 +77,7 @@ def _plan_eviction_from_stats(ctx: SchedContext, task_feas_now, min_exec):
     occ = row >= 0
     row_type = ctx.task_type.gather(1, row.clamp(min=0))
     victim_ok = occ & ~ctx.suffered.gather(1, row_type)
-    e_tgt = eet[tt_tgt, mstar]
+    e_tgt = eet_at(eet, tt_tgt, mstar)
     base = torch.maximum(_take(ctx.view.avail_base, mstar), now)
     evict = torch.zeros((B, Q), dtype=torch.bool, device=now.device)
     remaining = seq_sum(q_row)

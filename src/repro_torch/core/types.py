@@ -5,14 +5,15 @@ local-queue slots. The port adds an explicit leading batch dim B where
 the JAX package relied on ``vmap``: every per-trace tensor below carries
 it once it is inside the engine.
 
-Only the flat, single-site system is covered: ``SystemSpec`` has no site
-or tier partition, and ``SimState`` has none of the fault, federation or
-network fields.
+A ``SystemSpec`` may partition its machines into federation sites
+(``site_of_machine``) and its sites into edge-cloud tiers
+(``tier_of_site``); ``SimState`` carries each task's site. It has none of
+the fault or network fields.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +37,11 @@ class SystemSpec:
     p_idle: (M,) idle power of each machine.
     queue_size: local queue slots per machine.
     fairness_factor: ``f`` in Eq. 3.
+    site_of_machine: optional (M,) partition of the machines into F
+      federation sites, numbered ``0..F-1``, each owning at least one
+      machine; ``None`` is the flat system (one site). Stored as a tuple.
+    tier_of_site: optional (F,) edge-cloud tier of each site (device 0,
+      edge 1, cloud 2); ``None`` puts every site on the device tier.
     """
 
     eet: np.ndarray
@@ -43,6 +49,59 @@ class SystemSpec:
     p_idle: np.ndarray
     queue_size: int = 2
     fairness_factor: float = 1.0
+    site_of_machine: Optional[Tuple[int, ...]] = None
+    tier_of_site: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        if self.site_of_machine is not None:
+            sites = tuple(int(s) for s in np.asarray(self.site_of_machine))
+            object.__setattr__(self, "site_of_machine", sites)
+            if len(sites) != self.n_machines:
+                raise ValueError(
+                    f"site_of_machine has {len(sites)} entries for "
+                    f"{self.n_machines} machines")
+            n_sites = max(sites) + 1
+            if min(sites) < 0 or set(sites) != set(range(n_sites)):
+                raise ValueError(
+                    f"sites must be contiguous 0..F-1 with every site "
+                    f"non-empty, got {sites}")
+        if self.tier_of_site is not None:
+            tiers = tuple(int(t) for t in np.asarray(self.tier_of_site))
+            object.__setattr__(self, "tier_of_site", tiers)
+            if len(tiers) != self.n_sites:
+                raise ValueError(f"tier_of_site has {len(tiers)} entries "
+                                 f"for {self.n_sites} sites")
+            if min(tiers) < 0:
+                raise ValueError(f"tiers must be >= 0, got {tiers}")
+
+    @property
+    def n_machines(self) -> int:
+        return np.shape(self.eet)[1]
+
+    @property
+    def n_sites(self) -> int:
+        """Number of federation sites F (1 for the flat system)."""
+        return 1 if self.site_of_machine is None else \
+            max(self.site_of_machine) + 1
+
+    @property
+    def sites(self) -> Tuple[int, ...]:
+        """The (M,) site partition, materialized (all zeros when unset)."""
+        if self.site_of_machine is None:
+            return (0,) * self.n_machines
+        return self.site_of_machine
+
+    @property
+    def tiers(self) -> Tuple[int, ...]:
+        """The (F,) site tiers, materialized (all device when unset)."""
+        if self.tier_of_site is None:
+            return (0,) * self.n_sites
+        return self.tier_of_site
+
+    @property
+    def n_tiers(self) -> int:
+        """Number of hierarchy levels spanned (``max tier + 1``)."""
+        return max(self.tiers) + 1
 
     def as_torch(self, device) -> "SystemArrays":
         """The float32 tensors the engine and the policies read."""
@@ -53,12 +112,28 @@ class SystemSpec:
                             p_idle=f32(self.p_idle))
 
 
-class SystemArrays(NamedTuple):
-    """Device-side mirror of :class:`SystemSpec`, shared by the batch."""
+def site_membership(site_of_machine, n_sites: Optional[int] = None
+                    ) -> np.ndarray:
+    """(F, M) bool membership grid of a site partition: row ``s`` is the
+    machine mask of site ``s``."""
+    sites = np.asarray(site_of_machine, np.int64)
+    F = int(sites.max()) + 1 if n_sites is None else int(n_sites)
+    return np.arange(F)[:, None] == sites[None, :]
 
-    eet: torch.Tensor     # (S, M) f32
-    p_dyn: torch.Tensor   # (M,) f32
-    p_idle: torch.Tensor  # (M,) f32
+
+class SystemArrays(NamedTuple):
+    """Device-side mirror of :class:`SystemSpec`.
+
+    The engine's own arrays are shared by the batch: ``eet`` (S, M) and
+    the powers (M,). A policy may also be handed one table per row,
+    ``eet`` (B, S, M) and ``p_dyn`` (B, M): the engine does so for the
+    federation's site views, where row ``b * F + f`` is site ``f`` of
+    replicate ``b``.
+    """
+
+    eet: torch.Tensor     # (S, M) or (B, S, M) f32
+    p_dyn: torch.Tensor   # (M,) or (B, M) f32
+    p_idle: torch.Tensor  # (M,) or (B, M) f32
 
 
 class Trace(NamedTuple):
@@ -90,6 +165,7 @@ class SimState(NamedTuple):
 
     now: torch.Tensor          # (B,) f32
     status: torch.Tensor       # (B, N) int64
+    site: torch.Tensor         # (B, N) int64 federation site, -1 undispatched
     run_task: torch.Tensor     # (B, M) int64, -1 idle
     run_start: torch.Tensor    # (B, M) f32
     run_end_act: torch.Tensor  # (B, M) f32 actual completion (inf if idle)

@@ -24,11 +24,13 @@ def _as_tensor(x) -> torch.Tensor:
 
 
 def simulate_sweep(traces: Trace, system: SystemSpec, heuristic_names, *,
-                   use_fused_phase1: bool = False,
+                   dispatcher=None, use_fused_phase1: bool = False,
                    use_fused_map: bool = False, max_steps=None, device=None,
                    run_info: dict | None = None) -> Metrics:
     """Simulate a flat batch of traces (leaves (B, N), (B, N, M)) under
-    every heuristic, on ``device`` (``None`` = CUDA).
+    every heuristic, on ``device`` (``None`` = CUDA). A federated
+    ``system`` dispatches through ``dispatcher`` (``None`` = ``sticky``);
+    ``use_fused_map`` also puts its balance walk on the kernel.
 
     Returns Metrics as numpy arrays with leaves (H, B, ...). When
     ``run_info`` is a dict, it receives per heuristic the wall seconds
@@ -40,7 +42,7 @@ def simulate_sweep(traces: Trace, system: SystemSpec, heuristic_names, *,
         t0 = time.perf_counter()
         it0 = engine.COUNTS["loop_iterations"]
         m = engine.simulate_batch(
-            traces, system, name, max_steps=max_steps,
+            traces, system, name, max_steps=max_steps, dispatcher=dispatcher,
             use_fused_map=use_fused_map, use_fused_phase1=use_fused_phase1,
             device=dev)
         per_h.append(Metrics(*(x.cpu().numpy() for x in m)))
@@ -73,7 +75,7 @@ def run_sweep(spec: SweepSpec, *, traces: Trace | None = None,
                    for x in traces))
     run_info: dict = {}
     metrics = simulate_sweep(
-        flat, system, spec.heuristics,
+        flat, system, spec.heuristics, dispatcher=spec.dispatcher,
         use_fused_phase1=spec.use_fused_phase1,
         use_fused_map=spec.use_fused_map, max_steps=spec.max_steps,
         device=dev, run_info=run_info)

@@ -1,10 +1,12 @@
 """Sweep configuration (counterpart of ``repro/experiments/spec.py``).
 
 A :class:`SweepSpec` fixes a batched Monte-Carlo experiment — system,
-arrival rates, replicates, heuristics, seed — so a sweep is reproducible
-from its spec alone. Heuristic names resolve through
-:mod:`repro_torch.core.policy`, system names through the fleet registry
-(``"paper"``, ``"aws"``). Only the ``"poisson"`` scenario is ported.
+arrival rates, replicates, heuristics, seed, dispatcher — so a sweep is
+reproducible from its spec alone. Heuristic names resolve through
+:mod:`repro_torch.core.policy`, dispatcher names through
+:mod:`repro_torch.core.dispatch`, system names through the fleet
+registry (``"paper"``, ``"aws"``, ``"paper_x8"``, ...). Only the
+``"poisson"`` scenario is ported.
 """
 from __future__ import annotations
 
@@ -47,7 +49,11 @@ class SweepSpec:
     Attributes mirror the JAX ``SweepSpec``; ``use_fused_phase1`` and
     ``use_fused_map`` are the counterparts of ``use_pallas_phase1`` and
     ``use_pallas_map`` (both off by default): they route ELARE's Phase I,
-    or the whole map decision, through the port's CUDA kernels.
+    or the whole map decision and the dispatcher's balance walk, through
+    the port's CUDA kernels. ``dispatcher`` is the federation's
+    site-selection rule, a registered name or a dispatcher instance; a
+    single-site system has no dispatch stage, so it changes nothing
+    there.
     """
 
     system: Union[str, SystemSpec, None] = None
@@ -63,6 +69,7 @@ class SweepSpec:
     use_fused_map: bool = False
     max_steps: Optional[int] = None
     scenario: str = "poisson"
+    dispatcher: Union[str, object] = "sticky"
 
     def __post_init__(self):
         object.__setattr__(self, "rates",
@@ -87,6 +94,20 @@ class SweepSpec:
         if not scenarios.is_registered(self.scenario):
             raise ValueError(f"unknown scenario {self.scenario!r}; choose "
                              f"from {scenarios.list_scenarios()}")
+        from repro_torch.core import dispatch
+
+        if isinstance(self.dispatcher, str):
+            name = self.dispatcher.strip().lower()
+            if not dispatch.is_registered(name):
+                raise ValueError(
+                    f"unknown dispatcher {self.dispatcher!r}; "
+                    f"choose from {dispatch.list_dispatchers()} "
+                    f"(or dispatch.register(...) your own)")
+            object.__setattr__(self, "dispatcher", name)
+        elif not callable(getattr(self.dispatcher, "dispatch", None)):
+            raise ValueError(
+                f"dispatcher must be a registered name or a "
+                f"dispatch.Dispatcher, got {self.dispatcher!r}")
 
     @property
     def n_simulations(self) -> int:
@@ -122,7 +143,10 @@ class SweepSpec:
 
     def to_json_dict(self) -> dict:
         """JSON-ready record of the spec (written into ``sweep.json``)."""
-        d = dataclasses.asdict(self)
+        from repro_torch.core import dispatch
+
+        d = {f.name: getattr(self, f.name)
+             for f in dataclasses.fields(self)}
         if isinstance(self.system, SystemSpec):
             d["system"] = {
                 "eet": [[float(x) for x in row] for row in self.system.eet],
@@ -130,7 +154,11 @@ class SweepSpec:
                 "p_idle": [float(x) for x in self.system.p_idle],
                 "queue_size": self.system.queue_size,
                 "fairness_factor": self.system.fairness_factor,
+                "site_of_machine": self.system.site_of_machine,
+                "tier_of_site": self.system.tier_of_site,
             }
+        if not isinstance(self.dispatcher, str):
+            d["dispatcher"] = dispatch.to_json_dict(self.dispatcher)
         d["rates"] = list(self.rates)
         d["heuristics"] = list(self.heuristics)
         return d

@@ -6,8 +6,10 @@
 
 Runs on the CUDA device unless ``--device cpu`` is given. Rates accept a
 comma list (``2,3,4.5``) or an inclusive ``start:stop:step`` range.
-``--fused-map`` runs the whole map decision through the ``map_fused``
-kernels, ``--fused-phase1`` ELARE's Phase I through ``phase1_map``.
+``--fused-map`` runs the whole map decision (and a federation's balance
+walk) through the ``map_fused`` kernels, ``--fused-phase1`` ELARE's
+Phase I through ``phase1_map``. ``--dispatcher`` picks a federation's
+site-selection rule (``--list-dispatchers``).
 Unknown names and bad grids exit with an ``error:`` line and status 2.
 """
 from __future__ import annotations
@@ -17,7 +19,7 @@ import sys
 import time
 
 from repro_torch import scenarios
-from repro_torch.core import policy
+from repro_torch.core import dispatch, policy
 from repro_torch.core.device import resolve_device
 from repro_torch.experiments.results import SweepResult
 from repro_torch.experiments.runner import run_sweep
@@ -54,6 +56,13 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
                          + ",".join(DEFAULT_HEURISTICS) + "; see --list)")
     ap.add_argument("--list", action="store_true",
                     help="list the registered scheduling policies and exit")
+    ap.add_argument("--dispatcher", default="sticky",
+                    help="federation site-selection rule for multi-site "
+                         "systems (default: sticky; see --list-dispatchers)."
+                         " Inert on single-site systems.")
+    ap.add_argument("--list-dispatchers", action="store_true",
+                    help="list the registered federation dispatchers and "
+                         "exit")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cv-run", type=float, default=0.1,
                     help="CV of actual runtimes around the EET (default 0.1)")
@@ -65,8 +74,9 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
                     help="run ELARE/FELARE Phase I through the phase1_map "
                          "kernel")
     ap.add_argument("--fused-map", action="store_true",
-                    help="run the whole map decision through the map_fused "
-                         "kernels (map_decide, evict_stats)")
+                    help="run the whole map decision and the dispatcher's "
+                         "balance walk through the map_fused kernels "
+                         "(map_decide, evict_stats, balance_scan)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions on the CPU)")
@@ -76,6 +86,9 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
 
     if args.list:
         print_policy_list()
+        raise SystemExit(0)
+    if args.list_dispatchers:
+        print_dispatcher_list()
         raise SystemExit(0)
     heuristics = tuple(
         h.strip() for h in args.heuristics.split(",") if h.strip()
@@ -88,6 +101,10 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
     if not scenarios.is_registered_fleet(args.system):
         ap.error(f"unknown system {args.system!r}; registered fleets: "
                  + ", ".join(scenarios.list_fleets()))
+    if not dispatch.is_registered(args.dispatcher):
+        ap.error(f"unknown dispatcher {args.dispatcher!r}; registered "
+                 "dispatchers: " + ", ".join(dispatch.list_dispatchers())
+                 + " (run with --list-dispatchers for details)")
     try:
         rates = parse_rates(args.rates) if args.rates else DEFAULT_RATES
         spec = SweepSpec(
@@ -102,6 +119,7 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
             fairness_factor=args.fairness_factor,
             use_fused_phase1=args.fused_phase1,
             use_fused_map=args.fused_map,
+            dispatcher=args.dispatcher,
         )
         args.device = resolve_device(args.device)
     except (ValueError, RuntimeError) as e:
@@ -119,6 +137,13 @@ def print_policy_list(file=None) -> None:
         print(f"{name:10s} {d.nominator:20s} {d.phase2_key:12s} "
               f"{d.drop_rule:15s} {'yes' if d.fairness else 'no':8s}",
               file=file)
+
+
+def print_dispatcher_list(file=None) -> None:
+    """One line per registered federation dispatcher: name + description."""
+    file = file if file is not None else sys.stdout
+    for name in dispatch.list_dispatchers():
+        print(f"{name:14s} {dispatch.describe(name)}", file=file)
 
 
 def print_summary(result: SweepResult, file=None) -> None:
@@ -140,10 +165,13 @@ def print_summary(result: SweepResult, file=None) -> None:
 def main(argv=None) -> SweepResult:
     spec, args = build_spec(argv)
     n = spec.n_simulations
+    n_sites = spec.resolve_system().n_sites
+    fed = (f" sites={n_sites} dispatcher={spec.dispatcher}"
+           if n_sites > 1 else "")
     print(f"sweep: {len(spec.heuristics)} heuristics x "
           f"{len(spec.rates)} rates x {spec.reps} reps "
-          f"({n} traces of {spec.n_tasks} tasks) on system={args.system} "
-          f"device={args.device}", flush=True)
+          f"({n} traces of {spec.n_tasks} tasks) on system={args.system}"
+          f"{fed} device={args.device}", flush=True)
     t0 = time.perf_counter()
     result = run_sweep(spec, device=args.device)
     dt = time.perf_counter() - t0

@@ -12,31 +12,43 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.core.dispatch import DispatchContext
 from repro_torch.core.policy.context import MachineView, SchedContext
 from repro_torch.core.types import Metrics, SystemArrays, SystemSpec, Trace
 
 
 def system_from_arrays(eet, p_dyn, p_idle, queue_size: int = 2,
-                       fairness_factor: float = 1.0) -> SystemSpec:
-    """A :class:`SystemSpec` from (S, M) EET and (M,) power arrays."""
+                       fairness_factor: float = 1.0, site_of_machine=None,
+                       tier_of_site=None) -> SystemSpec:
+    """A :class:`SystemSpec` from (S, M) EET and (M,) power arrays, and
+    optionally an (M,) site partition and (F,) site tiers."""
     return SystemSpec(
         eet=np.asarray(eet, np.float32),
         p_dyn=np.asarray(p_dyn, np.float32),
         p_idle=np.asarray(p_idle, np.float32),
         queue_size=int(queue_size),
         fairness_factor=float(fairness_factor),
+        site_of_machine=(None if site_of_machine is None
+                         else tuple(int(s) for s in site_of_machine)),
+        tier_of_site=(None if tier_of_site is None
+                      else tuple(int(t) for t in tier_of_site)),
     )
+
+
+def _to(device):
+    dev = resolve_device(device)
+
+    def to(x, dtype):
+        return torch.as_tensor(np.array(x, dtype=dtype), device=dev)
+
+    return to
 
 
 def trace_from_arrays(arrival, task_type, deadline, exec_actual,
                       device=None) -> Trace:
     """A :class:`Trace` on ``device`` (``None`` = CUDA) from one trace's
     arrays ((N,), (N, M)) or a stacked batch's ((..., N), (..., N, M))."""
-    dev = resolve_device(device)
-
-    def to(x, dtype):
-        return torch.as_tensor(np.array(x, dtype=dtype), device=dev)
-
+    to = _to(device)
     return Trace(
         arrival=to(arrival, np.float32),
         task_type=to(task_type, np.int64),
@@ -52,6 +64,29 @@ def metrics_to_numpy(metrics: Metrics) -> dict:
             for k, v in metrics._asdict().items()}
 
 
+def dispatch_context_from_arrays(*, now, unassigned, task_type, deadline,
+                                 qlen, running, completed, arrived, eet,
+                                 site_of_machine, n_sites: int,
+                                 fairness_factor: float = 1.0,
+                                 device=None) -> DispatchContext:
+    """A batched :class:`DispatchContext` from numpy arrays.
+
+    Per-replicate arrays carry a leading B: ``now`` (B,), ``unassigned``,
+    ``task_type``, ``deadline`` (B, N), ``qlen``, ``running`` (B, M),
+    ``completed``, ``arrived`` (B, S). ``eet`` (S, M) and the (M,)
+    ``site_of_machine`` partition are shared by the batch.
+    """
+    to = _to(device)
+    return DispatchContext(
+        now=to(now, np.float32), unassigned=to(unassigned, np.bool_),
+        task_type=to(task_type, np.int64), deadline=to(deadline, np.float32),
+        qlen=to(qlen, np.int64), running=to(running, np.bool_),
+        completed=to(completed, np.int64), arrived=to(arrived, np.int64),
+        eet=to(eet, np.float32),
+        site_of_machine=to(site_of_machine, np.int64),
+        n_sites=int(n_sites), fairness_factor=float(fairness_factor))
+
+
 def context_from_arrays(*, now, pending, task_type, deadline, avail_base,
                         queue, qlen, eet, p_dyn, p_idle, suffered,
                         device=None) -> SchedContext:
@@ -60,13 +95,10 @@ def context_from_arrays(*, now, pending, task_type, deadline, avail_base,
     Per-replicate arrays carry a leading B: ``now`` (B,), ``pending``,
     ``task_type``, ``deadline`` (B, N), ``avail_base``, ``qlen`` (B, M),
     ``queue`` (B, M, Q), ``suffered`` (B, S). ``eet`` (S, M), ``p_dyn``
-    and ``p_idle`` (M,) are shared by the batch.
+    and ``p_idle`` (M,) are shared by the batch; ``eet`` (B, S, M) and
+    ``p_dyn`` (B, M) give each replicate its own.
     """
-    dev = resolve_device(device)
-
-    def to(x, dtype):
-        return torch.as_tensor(np.array(x, dtype=dtype), device=dev)
-
+    to = _to(device)
     return SchedContext(
         now=to(now, np.float32),
         pending=to(pending, np.bool_),

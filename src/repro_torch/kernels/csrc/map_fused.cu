@@ -16,6 +16,11 @@
 // launch; the float work (a few dozen operations per task) is far from
 // the 67 TFLOP/s float32 rate.
 //
+// The EET table is shared by every replicate (batch stride 0) or given
+// per replicate (stride S * M): the federation hands each site view of a
+// replicate its own table, with the other sites' columns cut off or set
+// to BIG.
+//
 // What the design does about it: every task is read once, by one thread,
 // with neighbouring threads on neighbouring tasks (coalesced), and nothing
 // but the outputs goes back to device memory. The TPU kernel carried its
@@ -59,7 +64,8 @@ __global__ void map_decide_kernel(
     const float* __restrict__ now_b, const float* __restrict__ start,
     const float* __restrict__ pdyn, int pdyn_bstride,
     const uint8_t* __restrict__ qfree, const float* __restrict__ eet,
-    const float* __restrict__ deadline, const uint8_t* __restrict__ pending,
+    int eet_bstride, const float* __restrict__ deadline,
+    const uint8_t* __restrict__ pending,
     const int64_t* __restrict__ task_type,
     const uint8_t* __restrict__ suffered, uint8_t* __restrict__ drop_out,
     float* __restrict__ hi_key, int64_t* __restrict__ hi_task,
@@ -70,6 +76,7 @@ __global__ void map_decide_kernel(
   const float* st = start + (size_t)b * M;
   const float* pd = pdyn + (size_t)b * pdyn_bstride;
   const uint8_t* qf = qfree + (size_t)b * M;
+  const float* eet_b = eet + (size_t)b * eet_bstride;
   // "no nominee": key BIG, task 0 — what the TPU kernel's accumulator
   // starts from and keeps unless a key strictly below BIG arrives.
   const unsigned long long none = (unsigned long long)order_key(BIG) << 32;
@@ -80,7 +87,7 @@ __global__ void map_decide_kernel(
     const size_t t = (size_t)b * N + i;
     const bool pend = pending[t] != 0;
     const float d = deadline[t];
-    const float* row = eet + task_type[t] * M;
+    const float* row = eet_b + task_type[t] * M;
     const bool stale = pend && (now >= d);
     const bool alive = pend && !stale;
 
@@ -153,8 +160,8 @@ __global__ void map_decide_kernel(
 
 __global__ void evict_stats_kernel(
     const float* __restrict__ start, const uint8_t* __restrict__ qfree,
-    const float* __restrict__ eet, const float* __restrict__ deadline,
-    const uint8_t* __restrict__ pending,
+    const float* __restrict__ eet, int eet_bstride,
+    const float* __restrict__ deadline, const uint8_t* __restrict__ pending,
     const int64_t* __restrict__ task_type, uint8_t* __restrict__ feas_out,
     float* __restrict__ min_exec_out, int N, int M) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -163,7 +170,7 @@ __global__ void evict_stats_kernel(
   const size_t t = (size_t)b * N + i;
   const bool pend = pending[t] != 0;
   const float d = deadline[t];
-  const float* row = eet + task_type[t] * M;
+  const float* row = eet + (size_t)b * eet_bstride + task_type[t] * M;
   const float* st = start + (size_t)b * M;
   const uint8_t* qf = qfree + (size_t)b * M;
   bool any = false;
@@ -178,7 +185,7 @@ __global__ void evict_stats_kernel(
 }
 
 using MapDecideFn = void (*)(const float*, const float*, const float*, int,
-                             const uint8_t*, const float*, const float*,
+                             const uint8_t*, const float*, int, const float*,
                              const uint8_t*, const int64_t*, const uint8_t*,
                              uint8_t*, float*, int64_t*, float*, int64_t*,
                              int, int);
@@ -212,11 +219,11 @@ MapDecideFn pick_map_decide(int nom, int key, int drop) {
 
 extern "C" int map_decide_launch(
     const void* now, const void* start, const void* pdyn, int pdyn_bstride,
-    const void* qfree, const void* eet, const void* deadline,
-    const void* pending, const void* task_type, const void* suffered,
-    void* drop, void* hi_key, void* hi_task, void* lo_key, void* lo_task,
-    int B, int N, int M, int nominator, int key_kind, int drop_rule,
-    void* stream) {
+    const void* qfree, const void* eet, int eet_bstride,
+    const void* deadline, const void* pending, const void* task_type,
+    const void* suffered, void* drop, void* hi_key, void* hi_task,
+    void* lo_key, void* lo_task, int B, int N, int M, int nominator,
+    int key_kind, int drop_rule, void* stream) {
   if (nominator < 0 || nominator > 3 || key_kind < 0 || key_kind > 3 ||
       drop_rule < 0 || drop_rule > 1 || B < 1 || N < 1 || M < 1)
     return (int)cudaErrorInvalidValue;
@@ -228,7 +235,7 @@ extern "C" int map_decide_launch(
   }
   fn<<<B, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)now, (const float*)start, (const float*)pdyn,
-      pdyn_bstride, (const uint8_t*)qfree, (const float*)eet,
+      pdyn_bstride, (const uint8_t*)qfree, (const float*)eet, eet_bstride,
       (const float*)deadline, (const uint8_t*)pending,
       (const int64_t*)task_type, (const uint8_t*)suffered, (uint8_t*)drop,
       (float*)hi_key, (int64_t*)hi_task, (float*)lo_key, (int64_t*)lo_task,
@@ -237,14 +244,14 @@ extern "C" int map_decide_launch(
 }
 
 extern "C" int evict_stats_launch(
-    const void* start, const void* qfree, const void* eet,
+    const void* start, const void* qfree, const void* eet, int eet_bstride,
     const void* deadline, const void* pending, const void* task_type,
     void* feas, void* min_exec, int B, int N, int M, void* stream) {
   if (B < 1 || N < 1 || M < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid((N + THREADS - 1) / THREADS, B);
   evict_stats_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)start, (const uint8_t*)qfree, (const float*)eet,
-      (const float*)deadline, (const uint8_t*)pending,
+      eet_bstride, (const float*)deadline, (const uint8_t*)pending,
       (const int64_t*)task_type, (uint8_t*)feas, (float*)min_exec, N, M);
   return (int)cudaGetLastError();
 }

@@ -1,26 +1,33 @@
 """The fused map-decision kernels: wrappers and their plain versions.
 
-Counterpart of ``repro/kernels/map_fused/ops.py`` for the two kernels
-on the flat path, batched over B replicates:
+Counterpart of ``repro/kernels/map_fused/ops.py``, batched over B
+replicates:
 
   * :func:`map_decide` — per event: the drop mask, and per machine the
     lowest Phase-II key among its suffered (hi) and other (lo) nominees,
     with the task holding it;
   * :func:`evict_stats` — per task: feasible now on some free machine,
     and the fastest EET (the two grid reductions FELARE's eviction
-    planner needs).
+    planner needs);
+  * :func:`balance_scan` — the federation dispatcher's least-loaded site
+    walk (``core/dispatch/base.py::sequential_balance``).
+
+The EET table of the first two is shared by the batch, (S, M), or given
+per row, (B, S, M), as for the federation's site views.
 
 Each wrapper runs its plain PyTorch version when every input lies on the
-CPU, and otherwise launches its CUDA kernel (``csrc/map_fused.cu``) or
-raises. ``LAUNCHES`` counts kernel launches, and nothing else.
+CPU, and otherwise launches its CUDA kernel (``csrc/map_fused.cu``,
+``csrc/balance_scan.cu``) or raises. ``LAUNCHES`` counts kernel
+launches, and nothing else.
 
-No padding: the kernels handle any N and M. A machine whose key is BIG
-has no nominee, and its task is then 0, as in the TPU kernel.
+No padding: the kernels handle any N, M and F. A machine whose key is
+BIG has no nominee, and its task is then 0, as in the TPU kernel.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.eet import type_rows
 from repro_torch.core.equations import BIG, hash_machine
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (
@@ -41,22 +48,33 @@ KEY_KINDS = ("value", "deadline", "urgency", "fcfs")
 DROP_KINDS = ("stale", "stale_hopeless")
 
 #: Kernel launches since the last reset (the CPU path never counts).
-LAUNCHES = {"map_decide": 0, "evict_stats": 0}
+LAUNCHES = {"map_decide": 0, "evict_stats": 0, "balance_scan": 0}
 
-_LIB = None
+_LIBS: dict = {}
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = build.load("map_fused")
-        lib.map_decide_launch.argtypes = [PTR] * 3 + [INT] + [PTR] * 11 + \
-            [INT] * 6 + [PTR]
-        lib.map_decide_launch.restype = INT
-        lib.evict_stats_launch.argtypes = [PTR] * 8 + [INT] * 3 + [PTR]
-        lib.evict_stats_launch.restype = INT
-        _LIB = lib
-    return _LIB
+def _lib(name: str):
+    """The loaded library of ``csrc/<name>.cu``, its functions typed."""
+    if name not in _LIBS:
+        lib = build.load(name)
+        if name == "map_fused":
+            lib.map_decide_launch.argtypes = [PTR] * 3 + [INT] + \
+                [PTR] * 2 + [INT] + [PTR] * 9 + [INT] * 6 + [PTR]
+            lib.map_decide_launch.restype = INT
+            lib.evict_stats_launch.argtypes = [PTR] * 3 + [INT] + \
+                [PTR] * 5 + [INT] * 3 + [PTR]
+            lib.evict_stats_launch.restype = INT
+        else:
+            lib.balance_scan_launch.argtypes = [PTR] * 5 + [INT] * 3 + [PTR]
+            lib.balance_scan_launch.restype = INT
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def _eet_shape(eet, B):
+    """The EET shape the kernels take, and its batch stride."""
+    S, M = eet.shape[-2:]
+    return ((S, M), 0) if eet.dim() == 2 else ((B, S, M), S * M)
 
 
 def _check_kinds(nominator, phase2_key, drop_rule):
@@ -77,15 +95,16 @@ def map_decide_plain(now, start, p_dyn, qfree, eet, deadline, pending,
     """What the ``map_decide`` kernel computes, in PyTorch ops.
 
     now (B,) f32; start (B, M) f32; p_dyn (M,) or (B, M) f32; qfree (B, M)
-    bool; eet (S, M) f32; deadline (B, N) f32; pending, suffered_task
-    (B, N) bool; task_type (B, N) int64. Returns ``(drop (B, N) bool,
-    hi_key (B, M) f32, hi_task (B, M) int64, lo_key, lo_task)``.
+    bool; eet (S, M) or (B, S, M) f32; deadline (B, N) f32; pending,
+    suffered_task (B, N) bool; task_type (B, N) int64. Returns ``(drop
+    (B, N) bool, hi_key (B, M) f32, hi_task (B, M) int64, lo_key,
+    lo_task)``.
     """
     _check_kinds(nominator, phase2_key, drop_rule)
     B, N = deadline.shape
-    M = eet.shape[1]
+    M = eet.shape[-1]
     big = torch.full((), BIG, device=start.device)
-    e = eet[task_type]                                    # (B, N, M)
+    e = type_rows(eet, task_type)                        # (B, N, M)
     s = start[:, None, :]
     d = deadline[:, :, None]
     nowc = now[:, None]
@@ -145,10 +164,42 @@ def evict_stats_plain(start, qfree, eet, deadline, pending, task_type):
 
     Returns ``(task_feas_now (B, N) bool, min_exec (B, N) f32)``.
     """
-    e = eet[task_type]
+    e = type_rows(eet, task_type)
     feas = ((start[:, None, :] + e <= deadline[:, :, None])
             & pending[:, :, None] & qfree[:, None, :])
     return feas.any(dim=2), e.min(dim=2).values
+
+
+def balance_scan_plain(load0, unassigned, target, home, *, max_new=None):
+    """What the ``balance_scan`` kernel computes, in PyTorch ops.
+
+    load0 (B, F) int64; unassigned, target (B, N) bool; home (B, N)
+    int64. Returns the (B, N) int64 site of every task: task k, with c_k
+    new (unassigned) tasks before it, sees the loads L_{c_k} after their
+    increments and takes ``argmin(L_{c_k})`` (lowest site on ties) if
+    ``target[k]``, else ``home[k]``. So the walk goes over the ranks of
+    the new tasks, not over all tasks: rank j's span, the tasks with
+    c_k = j, shares one argmin, and its new task adds one to its site.
+    ``max_new`` bounds the count of new tasks in any row; ``None`` reads
+    it from ``unassigned``, one host read.
+    """
+    F = load0.shape[1]
+    if max_new is None:
+        max_new = int(unassigned.sum(1).max())
+    new = unassigned.to(torch.int64)
+    before = new.cumsum(1) - new                          # c_k
+    load, sites = load0, home
+    for j in range(max_new + 1):
+        span = before == j
+        best = load.argmin(1, keepdim=True)               # lowest site
+        sites = torch.where(span & target, best, sites)
+        if j == max_new:
+            break
+        pick = span & unassigned                          # rank j's task
+        s = torch.where(pick, sites, 0).sum(1, keepdim=True)
+        inc = pick.any(1, keepdim=True) & (s >= 0) & (s < F)
+        load = load.scatter_add(1, s.clamp(0, F - 1), inc.to(load.dtype))
+    return sites
 
 
 # --------------------------------------------------------------------------
@@ -170,7 +221,8 @@ def map_decide(now, start, p_dyn, qfree, eet, deadline, pending, task_type,
                                 phase2_key=phase2_key, drop_rule=drop_rule)
     dev = cuda_device(start)
     B, N = deadline.shape
-    S, M = eet.shape
+    M = eet.shape[-1]
+    eet_shape, eet_bstride = _eet_shape(eet, B)
     f32, b8, i64 = torch.float32, torch.bool, torch.int64
     pdyn_shape = (M,) if p_dyn.dim() == 1 else (B, M)
     ptrs = [
@@ -178,7 +230,7 @@ def map_decide(now, start, p_dyn, qfree, eet, deadline, pending, task_type,
         check(start, "start", f32, (B, M), dev),
         check(p_dyn, "p_dyn", f32, pdyn_shape, dev),
         check(qfree, "qfree", b8, (B, M), dev),
-        check(eet, "eet", f32, (S, M), dev),
+        check(eet, "eet", f32, eet_shape, dev),
         check(deadline, "deadline", f32, (B, N), dev),
         check(pending, "pending", b8, (B, N), dev),
         check(task_type, "task_type", i64, (B, N), dev),
@@ -190,8 +242,9 @@ def map_decide(now, start, p_dyn, qfree, eet, deadline, pending, task_type,
     lo_key = torch.empty((B, M), dtype=f32, device=dev)
     lo_task = torch.empty((B, M), dtype=i64, device=dev)
     outs = (drop, hi_key, hi_task, lo_key, lo_task)
-    rc = _lib().map_decide_launch(
-        *ptrs[:3], 0 if p_dyn.dim() == 1 else M, *ptrs[3:],
+    rc = _lib("map_fused").map_decide_launch(
+        *ptrs[:3], 0 if p_dyn.dim() == 1 else M, *ptrs[3:5], eet_bstride,
+        *ptrs[5:],
         *(o.data_ptr() for o in outs), B, N, M,
         NOMINATOR_KINDS.index(nominator), KEY_KINDS.index(phase2_key),
         DROP_KINDS.index(drop_rule), stream_ptr(dev))
@@ -210,20 +263,48 @@ def evict_stats(start, qfree, eet, deadline, pending, task_type):
         return evict_stats_plain(*args)
     dev = cuda_device(start)
     B, N = deadline.shape
-    S, M = eet.shape
+    M = eet.shape[-1]
+    eet_shape, eet_bstride = _eet_shape(eet, B)
     ptrs = [
         check(start, "start", torch.float32, (B, M), dev),
         check(qfree, "qfree", torch.bool, (B, M), dev),
-        check(eet, "eet", torch.float32, (S, M), dev),
+        check(eet, "eet", torch.float32, eet_shape, dev),
         check(deadline, "deadline", torch.float32, (B, N), dev),
         check(pending, "pending", torch.bool, (B, N), dev),
         check(task_type, "task_type", torch.int64, (B, N), dev),
     ]
     feas = torch.empty((B, N), dtype=torch.bool, device=dev)
     min_exec = torch.empty((B, N), dtype=torch.float32, device=dev)
-    rc = _lib().evict_stats_launch(*ptrs, feas.data_ptr(),
-                                   min_exec.data_ptr(), B, N, M,
-                                   stream_ptr(dev))
+    rc = _lib("map_fused").evict_stats_launch(
+        *ptrs[:3], eet_bstride, *ptrs[3:], feas.data_ptr(),
+        min_exec.data_ptr(), B, N, M, stream_ptr(dev))
     raise_on(rc, "evict_stats")
     LAUNCHES["evict_stats"] += 1
     return feas, min_exec
+
+
+def balance_scan(load0, unassigned, target, home):
+    """The dispatcher's least-loaded walk as one kernel call.
+
+    Arguments and result as :func:`balance_scan_plain` (F at most 1024 on
+    the card); the contract of ``sequential_balance``'s ``impl`` hook.
+    """
+    args = (load0, unassigned, target, home)
+    if on_cpu(*args):
+        return balance_scan_plain(*args)
+    dev = cuda_device(load0)
+    B, F = load0.shape
+    N = unassigned.shape[1]
+    i64, b8 = torch.int64, torch.bool
+    ptrs = [
+        check(load0, "load0", i64, (B, F), dev),
+        check(unassigned, "unassigned", b8, (B, N), dev),
+        check(target, "target", b8, (B, N), dev),
+        check(home, "home", i64, (B, N), dev),
+    ]
+    sites = torch.empty((B, N), dtype=i64, device=dev)
+    rc = _lib("balance_scan").balance_scan_launch(
+        *ptrs, sites.data_ptr(), B, N, F, stream_ptr(dev))
+    raise_on(rc, "balance_scan")
+    LAUNCHES["balance_scan"] += 1
+    return sites

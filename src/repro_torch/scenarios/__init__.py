@@ -2,7 +2,9 @@
 
 Only the paper's default scenario is ported: Poisson arrivals, a uniform
 type mix, Eq. 4 deadlines and Gamma runtimes, registered as
-``"poisson"``; and the two paper fleets, ``"paper"`` and ``"aws"``.
+``"poisson"``; the two paper fleets, ``"paper"`` and ``"aws"``; and
+their federations, ``"paper_x2"`` ... ``"paper_x32"``, ``"tiered_x4"``
+and ``"tiered_x16"``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ from repro_torch.scenarios.base import Scenario
 from repro_torch.scenarios.deadlines import PaperDeadlines
 from repro_torch.scenarios.fleets import (
     AwsFleet,
+    FederatedFleet,
     PaperFleet,
+    TieredFleet,
     get_fleet,
     is_registered_fleet,
     list_fleets,
@@ -25,11 +29,13 @@ from repro_torch.scenarios.runtimes import GammaRuntimes
 __all__ = [
     "AwsFleet",
     "DEFAULT",
+    "FederatedFleet",
     "GammaRuntimes",
     "PaperDeadlines",
     "PaperFleet",
     "PoissonArrivals",
     "Scenario",
+    "TieredFleet",
     "UniformMix",
     "get",
     "get_fleet",

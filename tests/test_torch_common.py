@@ -13,10 +13,12 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from repro.core import api, workload
+from repro.core import api, pyengine, workload
+from repro.core import engine as jengine
 from repro.core.policy.context import MachineView, SchedContext
 from repro.core.types import SystemArrays
 from repro_torch import interop
+from repro_torch.core import engine as tengine
 
 CPU = "cpu"
 SPEC = api.paper_system()
@@ -119,3 +121,50 @@ def port_context(a: dict):
 
 def to_np(x) -> np.ndarray:
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+# --------------------------------------------------------------------------
+# Federation: a reference system carried into the port, and one run of
+# each side with the final per-task sites.
+# --------------------------------------------------------------------------
+def port_spec(spec):
+    """The port's SystemSpec of a reference SystemSpec, partitions
+    included."""
+    return interop.system_from_arrays(
+        spec.eet, spec.p_dyn, spec.p_idle, spec.queue_size,
+        spec.fairness_factor, site_of_machine=spec.site_of_machine,
+        tier_of_site=spec.tier_of_site)
+
+
+def jax_federated(spec, traces, heuristic, dispatcher, task_log=False):
+    """The JAX engine's metrics for a batch of reference traces and the
+    oracle's (``pyengine``) per trace: ``(jax_rows, jax_sites,
+    oracle_rows)``. ``jax_sites`` are the engine's final task sites from
+    its ``task_log`` observer when ``task_log`` is set, else ``None``
+    (the observer costs a compile of its own)."""
+    batch = jax.tree.map(lambda *xs: np.stack(xs), *traces)
+    out = jengine.simulate_batch(
+        batch, spec, heuristic, dispatcher=dispatcher,
+        observers=("task_log",) if task_log else ())
+    m, sites = ((out[0], np.asarray(out[1]["task_log"]["site"]))
+                if task_log else (out, None))
+    rows = [{k: np.asarray(v)[i] for k, v in m._asdict().items()}
+            for i in range(len(traces))]
+    oracle = [pyengine.simulate(tr, spec, heuristic, dispatcher=dispatcher)
+              for tr in traces]
+    return rows, sites, oracle
+
+
+def port_federated(tspec, traces, heuristic, dispatcher, fused):
+    """The port's metrics (numpy, leading B) and its final per-task sites,
+    read from the engine's final state."""
+    sysarr = tspec.as_torch(CPU)
+    run = tengine._make_loop(
+        tengine._resolve_policy(heuristic, fused, False), sysarr,
+        queue_size=tspec.queue_size,
+        fairness_factor=float(tspec.fairness_factor),
+        dispatcher=tengine._resolve_dispatcher(dispatcher, fused),
+        site_of_machine=tspec.site_of_machine)
+    st = run(traces)
+    return (interop.metrics_to_numpy(tengine._metrics(st, sysarr)),
+            st.site.numpy())

@@ -69,6 +69,79 @@ def test_run_sweep_fused_flags_change_no_counter():
                                           getattr(base.metrics, k))
 
 
+# ------------------------------------------------------------ federation
+X2_RATES = (4.0, 10.0)
+
+
+def test_federated_run_sweep_matches_jax_on_reference_traces():
+    """paper_x2 with fair_spill: given the reference's own trace stack,
+    the port's run_sweep gives the JAX run_sweep's counters and
+    makespans, fused or not."""
+    jspec = jexp.SweepSpec(system="paper_x2", rates=X2_RATES, reps=REPS,
+                           n_tasks=N_TASKS, heuristics=("ELARE", "FELARE"),
+                           seed=0, dispatcher="fair_spill")
+    ref = jexp.run_sweep(jspec)
+    stack = jscenarios.DEFAULT.stack(
+        jax.random.PRNGKey(0), X2_RATES, REPS, N_TASKS,
+        jscenarios.get_fleet("paper_x2").build().eet, cv_run=0.1)
+    ref_m = {k: np.asarray(v) for k, v in ref.metrics._asdict().items()}
+    for fused in (False, True):
+        spec = texp.SweepSpec(system="paper_x2", rates=X2_RATES, reps=REPS,
+                              n_tasks=N_TASKS, heuristics=("ELARE", "FELARE"),
+                              seed=0, dispatcher="fair_spill",
+                              use_fused_map=fused)
+        got = texp.run_sweep(spec, traces=[np.asarray(x) for x in stack],
+                             device=CPU)
+        assert_metrics_match(ref_m, got.metrics._asdict(),
+                             f"paper_x2 fair_spill fused={fused}")
+
+
+def test_cli_federated_probe_fused_changes_no_counter(capsys):
+    argv = ["--device", "cpu", "--system", "paper_x2", "--dispatcher",
+            "fair_spill", "--rates", "4", "--reps", "2", "--tasks", "60"]
+    base = tsweep.main(argv)
+    assert "sites=2 dispatcher=fair_spill" in capsys.readouterr().out
+    fused = tsweep.main(argv + ["--fused-map"])
+    for k in COUNT_FIELDS + ("makespan",):
+        np.testing.assert_array_equal(getattr(fused.metrics, k),
+                                      getattr(base.metrics, k), err_msg=k)
+
+
+def test_cli_list_dispatchers(capsys):
+    with pytest.raises(SystemExit) as exc:
+        tsweep.build_spec(["--list-dispatchers"])
+    assert exc.value.code == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [ln.split()[0] for ln in lines] == [
+        "fair_spill", "health_aware", "least_queued", "min_eet",
+        "round_robin", "sticky", "tier_aware"]
+
+
+def test_spec_dispatcher_validation_matches_jax():
+    for bad in ("BOGUS", 42):
+        with pytest.raises(ValueError) as ref:
+            jexp.SweepSpec(dispatcher=bad)
+        with pytest.raises(ValueError) as got:
+            texp.SweepSpec(dispatcher=bad)
+        assert str(got.value) == str(ref.value)
+    spec = texp.SweepSpec(system="paper_x2", dispatcher=" Fair_Spill ")
+    assert spec.dispatcher == "fair_spill"
+    assert spec.to_json_dict()["dispatcher"] == "fair_spill"
+    from repro_torch.core import dispatch
+
+    custom = texp.SweepSpec(dispatcher=dispatch.Sticky(salt=3))
+    assert custom.to_json_dict()["dispatcher"] == {"kind": "sticky",
+                                                   "salt": 3,
+                                                   "by_type": False}
+
+
+def test_run_study_on_a_federation():
+    res = api.run_study("FELARE", (6.0,), scenarios.get_fleet(
+        "paper_x2").build(), n_traces=2, n_tasks=40,
+        dispatcher="least_queued", device=CPU)
+    assert res[0].arrival_rate == 6.0 and 0 <= res[0].completion_rate <= 1
+
+
 # ----------------------------------------------------- synthesis, in law
 def test_poisson_rate_and_sorted_arrivals():
     n, rate = 20000, 4.0
@@ -131,6 +204,8 @@ def test_common_random_numbers_across_rates():
     (["--heuristics", "BOGUS"], "unknown heuristics"),
     (["--reps", "0"], "reps must be >= 1"),
     (["--system", "nowhere"], "unknown system"),
+    (["--system", "paper_x2", "--dispatcher", "BOGUS"],
+     "unknown dispatcher 'BOGUS'"),
 ])
 def test_cli_errors_exit_2(argv, needle, capsys):
     with pytest.raises(SystemExit) as exc:
