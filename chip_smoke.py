@@ -5,48 +5,80 @@
     python3 chip_smoke.py --reps 10      # a shorter flat path
     python3 chip_smoke.py --fed-reps 10  # a shorter federated path
 
-Phases, one JSON line each; any failed check raises, so the script exits
-non-zero and prints no result line:
+The port's float32 products stay in float32 (TF32 is switched off for
+matmuls and cuDNN alike).
+
+Phases, in the order they run, one JSON line each; any failed check
+raises, so the script exits non-zero and prints no result line:
 
   1. env      torch and CUDA versions, the card's name and power limit;
-  2. build    nvcc builds the kernels from ``src/repro_torch/kernels/csrc``;
-  3. kernels  each kernel against its plain PyTorch version on the card,
-              bit for bit (``torch.equal`` on every output): the map
-              kernels at the flat path's shape and at a wide one, over
+  2. build    nvcc builds the kernels from ``src/repro_torch/kernels/csrc``,
+              one process per source, all at once;
+  3. kernels  each scheduling kernel against its plain PyTorch version on
+              the card, bit for bit (``torch.equal`` on every output): the
+              map kernels at the flat path's shape and at a wide one, over
               every nominator x key x drop rule with the suffered split on
               and off, and in their per-row EET form at the federation's
               block-fold and masked-fold shapes; ``balance_scan`` at the
               federated path's shape and at F = 32 and 37, over sparse to
               full admissions, tied loads and dead-site penalties;
-  4. main     the flat paper-scale sweep (paper 4x4 system, rates 2-8, 30
+  4. model_kernels  flash attention, decode attention and the SSD scan
+              against their plain versions on the card, in float32 and
+              bfloat16, at ``tests/test_kernels.py``'s shapes (MHA, GQA,
+              MQA, Sq != Sk, ragged kv_len, q_offset 64, the four SSD
+              cases) and at the serve path's full-width shapes: attention
+              within atol 1e-5 in float32, the SSD scan within 2e-4,
+              anything in bfloat16 within 2e-2 (sums in another order);
+  5. times    per kernel at its path's shape: device time per launch
+              (``torch.profiler``), the plain version's device time per
+              call, the eager time per call by CUDA events with the host's
+              work included, the least time the card could take for the
+              same bytes and operations, and for the attention kernels
+              one ``scaled_dot_product_attention`` call on the same inputs
+              (timed here, never called by the port);
+  6. profile  where one batched event's time goes: the first 64
+              iterations of the flat FELARE and phase1 ELARE sweeps and of
+              the federated FELARE + fair_spill sweep on paper_x2 and
+              paper_x8 under torch.profiler (wall vs device-busy time,
+              kernels per iteration, which must not grow with the sites);
+  7. serve    zamba2-2.7b at its published width (54 layers, d_model 2560,
+              bf16, random weights from torch.Generator seed 0) serves 8
+              requests of 1024 prompt tokens (numpy seed 0) for 64 greedy
+              tokens through ``make_serve_steps``: one prefill, then 64
+              decode steps. The launch counts, zeroed just before, must be
+              9 flash_attention and 54 ssd_scan per prefill and 9
+              decode_attention per decode step. Prefill ms, ms per decode
+              step and tokens/s from CUDA events after a warm-up call,
+              peak memory, then (``serve_profile``) where one prefill and
+              one decode step spend their device time (torch.profiler);
+  8. serve_parity  the kernel path against the plain path on the card
+              (attn_impl = ssm_impl = "plain"): in float32 at full width,
+              the prefill logits and the first decode step's within rel
+              1e-3 of max|logits|; in bfloat16, every block of the prefill
+              and the attention blocks of a decode step from the same
+              input within 2e-2 of max|want|, and the first generated
+              tokens reported (on the requests whose top-2 gap on the
+              plain path is above 2e-2 x max|logits|, and against the
+              float32 run);
+  9. main     the flat paper-scale sweep (paper 4x4 system, rates 2-8, 30
               replicates of 2000 tasks) with ELARE, FELARE and MM on the
               fused map kernels and ELARE on the phase1_map kernel; the
               launch counts, zeroed just before, must show every kernel
               ran on every batched event;
-  5. parity   the same traces through the plain path on the card give
+ 10. parity   the same traces through the plain path on the card give
               identical counters and makespans, and a 2 x 2 subset
               through the port on the CPU gives identical counters with
               energies within rel 1e-5 (sums over machines run in another
               order there);
-  6. fed      the federated sweep: paper_x8 (8 sites of the 4x4 system,
+ 11. fed      the federated sweep: paper_x8 (8 sites of the 4x4 system,
               total rates 16-64, 30 replicates of 4000 tasks) with FELARE
               + fair_spill and ELARE + least_queued, then tiered_x4 (four
               unequal sites, masked views) with FELARE + least_queued, all
               on the fused kernels: map_decide and balance_scan launch
               once per batched event, not once per site;
-  7. fed_parity  the plain path on the card gives identical counters and
+ 12. fed_parity  the plain path on the card gives identical counters and
               makespans, and a 2 x 2 subset (each trace cut to its first
-              1000 tasks) gives the same counters on the CPU;
-  8. profile  where one batched event's time goes: the first 64
-              iterations of the flat FELARE and phase1 ELARE sweeps and of
-              the federated FELARE + fair_spill sweep on paper_x2 and
-              paper_x8 under torch.profiler (wall vs device-busy time,
-              kernels per iteration, which must not grow with the sites);
-  9. times    per kernel at the main path's shape: device time per
-              launch (``torch.profiler``), the plain version's device time
-              per call, the eager time per call by CUDA events with the
-              host's work included, and the least time the card could
-              take for the same bytes and operations.
+              1000 tasks) gives the same counters on the CPU.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, one
 ``{"kernels": [...]}`` line, and the last line
@@ -66,6 +98,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 MAIN_SHAPE = dict(B=150, N=2000, M=4, S=4)
 WIDE_SHAPE = dict(B=8, N=10_000, M=512, S=8)
 RATES = (2.0, 3.0, 4.0, 6.0, 8.0)
@@ -92,7 +125,38 @@ KERNEL_SOURCES = {
                    "src/repro/kernels/phase1_map/kernel.py:42"),
     "balance_scan": ("src/repro_torch/kernels/csrc/balance_scan.cu",
                      "src/repro/kernels/map_fused/kernel.py:289"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:88"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention/kernel.py:64"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan/kernel.py:74"),
 }
+# The serve path: zamba2-2.7b at its published width, 8 requests of 1024
+# prompt tokens, 64 greedy tokens each.
+SERVE_ARCH = "zamba2-2.7b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 1024, 64
+SERVE_MAX_SEQ = SERVE_PROMPT + SERVE_NEW
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# tests/test_kernels.py's shapes, then the serve path's.
+FLASH_CASES = (  # B, Sq, Sk, H, Hkv, hd, causal, q_offset, ragged kv_len
+    (2, 128, 128, 4, 4, 64, True, 0, False),
+    (2, 128, 128, 4, 2, 64, True, 0, False),
+    (2, 256, 256, 8, 1, 32, True, 0, False),
+    (2, 64, 192, 4, 2, 128, False, 0, False),
+    (2, 32, 128, 2, 2, 32, True, 64, True),
+    (2, 100, 130, 4, 1, 80, True, 30, True),
+    (8, 1024, 1024, 32, 32, 80, True, 0, False),
+)
+DECODE_CASES = (  # B, Sk, H, Hkv, hd
+    (2, 256, 4, 4, 64), (2, 512, 8, 2, 64), (2, 1024, 4, 1, 128),
+    (2, 192, 2, 2, 32), (8, SERVE_MAX_SEQ, 32, 32, 80),
+)
+SSD_CASES = (  # B, L, H, P, N, chunk
+    (2, 64, 2, 32, 16, 16), (2, 128, 4, 64, 64, 32), (2, 96, 1, 16, 8, 32),
+    (2, 256, 2, 64, 32, 128), (8, SERVE_PROMPT, 80, 64, 64, 128),
+)
 
 
 def emit(phase: str, **fields) -> None:
@@ -316,23 +380,119 @@ def check_federation_kernels(device, errs: dict) -> None:
 
 
 # --------------------------------------------------------------------------
+# Model kernels: flash attention, decode attention, the SSD scan
+# --------------------------------------------------------------------------
+def card_normal(gen, shape, dtype, scale=0.5):
+    import torch
+
+    x = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+def ssd_inputs(gen, B, L, H, P, N, dtype):
+    """``tests/test_kernels.py``'s distributions: x, B, C ~ 0.5 N(0, 1),
+    dt = softplus(N(0, 1)), A = -exp(0.3 N(0, 1))."""
+    import torch
+
+    dt = torch.nn.functional.softplus(card_normal(gen, (B, L, H),
+                                                  torch.float32, 1.0))
+    A = -torch.exp(card_normal(gen, (H,), torch.float32, 0.3))
+    return (card_normal(gen, (B, L, H, P), dtype), dt, A,
+            card_normal(gen, (B, L, N), torch.float32),
+            card_normal(gen, (B, L, N), torch.float32))
+
+
+def check_model_kernels(device, errs: dict) -> None:
+    """The three model kernels against their plain versions on the card,
+    float32 and bfloat16, within the stated tolerances."""
+    import torch
+
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import ssm_scan
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def record(name, got, want, tol, case):
+        torch.cuda.synchronize()
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        require(err <= tol, f"{name} {case}: max abs err {err} > {tol}")
+        errs[name] = max(errs[name], err)
+        return err
+
+    for dname, dt in dtypes.items():
+        worst = {k: 0.0 for k in ("flash_attention", "decode_attention",
+                                  "ssd_scan")}
+        for B, Sq, Sk, H, Hkv, hd, causal, off, ragged in FLASH_CASES:
+            q = card_normal(gen, (B, Sq, H, hd), dt)
+            k = card_normal(gen, (B, Sk, Hkv, hd), dt)
+            v = card_normal(gen, (B, Sk, Hkv, hd), dt)
+            kv_len = (torch.randint(1, Sk + 1, (B,), generator=gen,
+                                    device=device, dtype=torch.int32)
+                      if ragged else None)
+            kw = dict(causal=causal, kv_len=kv_len, q_offset=off)
+            worst["flash_attention"] = max(worst["flash_attention"], record(
+                "flash_attention", (flash_attention.flash_attention(
+                    q, k, v, **kw),),
+                (flash_attention.flash_attention_plain(q, k, v, **kw),),
+                ATTN_TOL[dname], (B, Sq, Sk, H, Hkv, hd, causal, off,
+                                  ragged, dname)))
+        for B, Sk, H, Hkv, hd in DECODE_CASES:
+            q = card_normal(gen, (B, 1, H, hd), dt)
+            k = card_normal(gen, (B, Sk, Hkv, hd), dt)
+            v = card_normal(gen, (B, Sk, Hkv, hd), dt)
+            kv_len = torch.randint(max(1, Sk - SERVE_NEW), Sk + 1, (B,),
+                                   generator=gen, device=device,
+                                   dtype=torch.int32) \
+                if Sk == SERVE_MAX_SEQ else torch.randint(
+                    1, Sk, (B,), generator=gen, device=device,
+                    dtype=torch.int32)
+            worst["decode_attention"] = max(worst["decode_attention"], record(
+                "decode_attention",
+                (decode_attention.decode_attention(q, k, v, kv_len),),
+                (decode_attention.decode_attention_plain(q, k, v, kv_len),),
+                ATTN_TOL[dname], (B, Sk, H, Hkv, hd, dname)))
+        for B, L, H, P, N, chunk in SSD_CASES:
+            args = ssd_inputs(gen, B, L, H, P, N, dt)
+            got = ssm_scan.ssm_scan(*args, chunk=chunk)
+            want = ssm_scan.ssd_scan_plain(*args, chunk=chunk)
+            case = (B, L, H, P, N, chunk, dname)
+            worst["ssd_scan"] = max(worst["ssd_scan"], record(
+                "ssd_scan", got[:1], want[:1], SSD_TOL[dname], case))
+            record("ssd_scan", got[1:], want[1:], SSD_TOL["float32"], case)
+        emit("model_kernels", dtype=dname, max_abs_err=worst,
+             tolerance={"attention": ATTN_TOL[dname],
+                        "ssd_scan": SSD_TOL[dname]},
+             cases={"flash_attention": len(FLASH_CASES),
+                    "decode_attention": len(DECODE_CASES),
+                    "ssd_scan": len(SSD_CASES)})
+
+
+# --------------------------------------------------------------------------
 # Main path and its parity
 # --------------------------------------------------------------------------
-def reset_counts():
-    from repro_torch.core import engine
+def launch_counters() -> tuple:
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import ssm_scan
     from repro_torch.kernels.map_fused import ops as mf
     from repro_torch.kernels.phase1_map import ops as p1
 
-    for d in (mf.LAUNCHES, p1.LAUNCHES, engine.COUNTS):
+    return (mf.LAUNCHES, p1.LAUNCHES, flash_attention.LAUNCHES,
+            decode_attention.LAUNCHES, ssm_scan.LAUNCHES)
+
+
+def reset_counts():
+    from repro_torch.core import engine
+
+    for d in (*launch_counters(), engine.COUNTS):
         for k in d:
             d[k] = 0
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels.map_fused import ops as mf
-    from repro_torch.kernels.phase1_map import ops as p1
-
-    return {**mf.LAUNCHES, **p1.LAUNCHES}
+    return {k: v for d in launch_counters() for k, v in d.items()}
 
 
 def summarize(result, run_name: str, phase: str = "main") -> None:
@@ -515,6 +675,278 @@ def run_federated_path(device, reps: int) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# Serve path: zamba2-2.7b at full width
+# --------------------------------------------------------------------------
+def serve_prompt():
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+
+    vocab = get_config(SERVE_ARCH).vocab_size
+    toks = np.random.default_rng(0).integers(
+        0, vocab, (SERVE_BATCH, SERVE_PROMPT))
+    return {"tokens": torch.as_tensor(toks)}
+
+
+def device_split(fn) -> dict:
+    """Device time of one call of ``fn`` by kernel, from torch.profiler:
+    busy ms, the call's wall ms, and the largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) * 1e-3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_ms_profiled": wall * 1e3, "device_busy_ms": busy,
+            "launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:60], "launches": e.count,
+                             "ms": e.self_device_time_total * 1e-3}
+                            for e in top]}
+
+
+def run_serve_path(device) -> tuple:
+    """zamba2-2.7b at full width serves 8 x 1024-token prompts for 64
+    greedy tokens through ``make_serve_steps``. Returns (launch counts of
+    the timed run, the bf16 params, the prompt)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.train import make_serve_steps
+
+    cfg = get_config(SERVE_ARCH)
+    require(cfg.attn_impl == "kernel" and cfg.ssm_impl == "kernel",
+            "the serve path must run the kernels")
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    params = transformer.init(cfg, gen, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(int(t.numel()) for t in _leaves(params))
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    steps = make_serve_steps(cfg, device=device)
+    batch = serve_prompt()
+
+    prefill_step, decode_step = steps
+    logits, cache = prefill_step(params, batch, max_seq=SERVE_MAX_SEQ)
+    decode_step(params, cache, logits.argmax(-1))           # warm-up
+    del logits, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base_mem = torch.cuda.memory_allocated(device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    reset_counts()
+    ev[0].record()
+    logits, cache = prefill_step(params, batch, max_seq=SERVE_MAX_SEQ)
+    ev[1].record()
+    finite = torch.isfinite(logits).all()
+    toks = []
+    for _ in range(SERVE_NEW):
+        tok = logits.argmax(-1)
+        toks.append(tok)
+        logits, cache = decode_step(params, cache, tok)
+        finite = finite & torch.isfinite(logits).all()
+    ev[2].record()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    decode_ms = ev[1].elapsed_time(ev[2])
+    toks = torch.cat(toks, 1)
+    require(bool(finite), "serve: non-finite logits")
+    require(tuple(toks.shape) == (SERVE_BATCH, SERVE_NEW)
+            and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+            "serve: tokens out of range")
+    require(cache["len"].tolist() == [SERVE_MAX_SEQ] * SERVE_BATCH,
+            f"serve: cache length {cache['len'].tolist()}")
+    n_inv = cfg.n_layers // cfg.attn_every
+    expect = {"flash_attention": n_inv, "ssd_scan": cfg.n_layers,
+              "decode_attention": n_inv * SERVE_NEW}
+    emit("serve", arch=SERVE_ARCH, params=n_params,
+         weight_bytes=weight_bytes, init_seconds=init_s,
+         batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
+         launches={k: counts[k] for k in expect}, expected=expect,
+         prefill_ms=prefill_ms, decode_ms_per_step=decode_ms / SERVE_NEW,
+         prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3,
+         decode_tokens_per_s=SERVE_BATCH * SERVE_NEW / decode_ms * 1e3,
+         end_to_end_ms=prefill_ms + decode_ms,
+         peak_memory_bytes=peak, memory_before_bytes=base_mem,
+         kv_cache_bytes=sum(cache[k].numel() * cache[k].element_size()
+                            for k in ("k", "v")),
+         ssm_state_bytes=sum(cache[k].numel() * cache[k].element_size()
+                             for k in ("ssm", "conv")),
+         first_tokens=toks[0, :8].tolist())
+    for k, v in expect.items():
+        require(counts[k] == v, f"serve: {k}: {counts[k]} launches, {v} "
+                                f"expected")
+    del cache
+    split = {"prefill": device_split(lambda: prefill_step(
+        params, batch, max_seq=SERVE_MAX_SEQ))}
+    _, c2 = prefill_step(params, batch, max_seq=SERVE_MAX_SEQ)
+    tok = toks[:, :1].contiguous()
+    split["decode_step"] = device_split(lambda: decode_step(params, c2, tok))
+    emit("serve_profile", **split)
+    return {k: counts[k] for k in expect}, params, batch
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def bf16_blocks(cfg, params, batch) -> dict:
+    """Every block of a prefill, and the attention blocks of a decode step
+    (its Mamba step is the same code on both paths), on the kernel path
+    and on the plain path from the same input (the kernel path's
+    trajectory): the largest difference over max|plain| per kind of
+    block, and how far the two paths' own trajectories have drifted apart
+    by the last layer."""
+    import torch
+
+    from repro_torch.models import layers as ll
+    from repro_torch.models import transformer as tf
+
+    cfgs = {"kernel": cfg,
+            "plain": cfg.scaled(attn_impl="plain", ssm_impl="plain")}
+    toks = batch["tokens"].to(params["inv_norms"].device)
+    pos = torch.arange(toks.shape[1], device=toks.device)
+    x = ll.embed_apply(params["embed"], toks, cfg.act_dtype)
+    x_plain = x
+    worst = {"mamba": 0.0, "attention": 0.0, "attention_decode": 0.0}
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    with torch.no_grad():
+        _, cache = tf.prefill(cfg, params, batch={"tokens": toks},
+                              max_seq=SERVE_MAX_SEQ)
+        xd = ll.embed_apply(params["embed"], toks[:, -1:], cfg.act_dtype)
+        dpos = cache["len"][:, None]
+        for i in range(cfg.n_layers):
+            lp = tf._layer(params["blocks"], i)
+            out = {k: tf._mamba_layer(c, lp, x) for k, c in cfgs.items()}
+            worst["mamba"] = max(worst["mamba"],
+                                 rel(out["kernel"], out["plain"]))
+            x = out["kernel"]
+            x_plain = tf._mamba_layer(cfgs["plain"], lp, x_plain)
+            if (i + 1) % cfg.attn_every:
+                continue
+            g = i // cfg.attn_every
+            sp = params["shared_attn"]
+            out = {k: tf._attn_block_apply(
+                c, sp, tf._shared_input(c, params, x, g), pos)[0]
+                for k, c in cfgs.items()}
+            worst["attention"] = max(worst["attention"],
+                                     rel(out["kernel"], out["plain"]))
+            x = out["kernel"]
+            x_plain = tf._attn_block_apply(
+                cfgs["plain"], sp, tf._shared_input(cfg, params, x_plain, g),
+                pos)[0]
+            xn = ll.norm_apply(cfg, sp["ln1"],
+                               tf._shared_input(cfg, params, xd, g))
+            dec = {k: ll.attn_decode(c, sp["attn"], xn, dpos,
+                                     cache["k"][g].clone(),
+                                     cache["v"][g].clone(), cache["len"])[0]
+                   for k, c in cfgs.items()}
+            worst["attention_decode"] = max(
+                worst["attention_decode"], rel(dec["kernel"], dec["plain"]))
+            xd = xd + dec["kernel"]
+    return {"block_rel_err_over_max": worst,
+            "trajectory_rel_drift_at_last_layer": rel(x, x_plain)}
+
+
+def run_serve_parity(device, params_bf16, batch) -> None:
+    """The kernel path against the plain path on the card.
+
+    float32 at full width (the bf16 weights upcast, exactly): the prefill
+    logits and the first decode step's within rel 1e-3 of max|logits|.
+    bfloat16: every block of the prefill and the attention blocks of a
+    decode step within 2e-2 of max|want| from the same input, as the
+    kernels are held. The first
+    generated token is compared and reported: on the rows whose top-2 gap
+    on the plain path is above 2e-2 x max|logits|, and against the
+    float32 run. It does not gate, because a one-ulp bf16 difference in a
+    block grows along the 54 random-weight layers (the drift is
+    reported): the two bf16 paths' final hidden states differ by tens of
+    percent, so near-tied tokens flip between them.
+    """
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.train import make_serve_steps
+
+    cfg = get_config(SERVE_ARCH)
+    plain = dict(attn_impl="plain", ssm_impl="plain")
+
+    # -- float32 at full width ---------------------------------------------
+    cfg32 = cfg.scaled(dtype="float32", param_dtype="float32")
+    params32 = transformer.tree_map(lambda t: t.float(), params_bf16)
+    rel = {}
+    tok = None
+    outs = {}
+    for label, c in (("kernel", cfg32), ("plain", cfg32.scaled(**plain))):
+        pre, dec = make_serve_steps(c, device)
+        logits, cache = pre(params32, batch, max_seq=SERVE_MAX_SEQ)
+        if tok is None:
+            tok = logits.argmax(-1)
+        step, _ = dec(params32, cache, tok)
+        outs[label] = (logits, step)
+        del cache
+    finite = True
+    for i, name in enumerate(("prefill", "decode")):
+        k, p = outs["kernel"][i], outs["plain"][i]
+        finite = finite and bool(torch.isfinite(k).all())
+        rel[name] = float((k - p).abs().max() / p.abs().max())
+    truth = outs["plain"][0][:, 0].argmax(-1)
+    params32_bytes = sum(t.numel() * 4 for t in _leaves(params32))
+    del params32, outs
+
+    # -- bfloat16 ----------------------------------------------------------
+    blocks = bf16_blocks(cfg, params_bf16, batch)
+    got = make_serve_steps(cfg, device)[0](params_bf16, batch,
+                                           max_seq=SERVE_MAX_SEQ)[0]
+    want = make_serve_steps(cfg.scaled(**plain), device)[0](
+        params_bf16, batch, max_seq=SERVE_MAX_SEQ)[0]
+    top2 = want[:, 0].topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]) / want.abs().max()
+    clear = gap > 2e-2
+    first_k, first_p = got[:, 0].argmax(-1), want[:, 0].argmax(-1)
+    agree = first_k == first_p
+    bf16 = {**blocks, "rows": SERVE_BATCH,
+            "clear_gap_rows": int(clear.sum()),
+            "first_token_agree_on_clear": int(agree[clear].sum()),
+            "first_token_agree_on_others": int(agree[~clear].sum()),
+            "top2_gap_over_max": [float(g) for g in gap],
+            "first_token_agree_with_float32": {
+                "kernel": int((first_k == truth).sum()),
+                "plain": int((first_p == truth).sum())},
+            "logit_diff_over_max": float(
+                (got - want).abs().max() / want.abs().max())}
+    emit("serve_parity", float32_rel_err_over_max=rel,
+         float32_params_bytes=params32_bytes, bfloat16=bf16)
+    require(finite, "f32: non-finite logits")
+    for name, err in rel.items():
+        require(err <= 1e-3, f"f32 {name}: rel err {err}")
+    for kind, err in blocks["block_rel_err_over_max"].items():
+        require(err <= 2e-2, f"bf16 {kind} block: rel err {err}")
+
+
 def profile_sim(label: str, sim, flat, steps: int) -> float:
     """Profile ``steps`` batched iterations of ``sim`` on ``flat`` after a
     warm-up; emit where the time goes and return the kernels launched per
@@ -646,7 +1078,7 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def time_kernels(device, launches: dict, errs: dict) -> list:
+def time_kernels(device, errs: dict) -> list:
     import torch
 
     from repro_torch.kernels import map_fused, phase1_map
@@ -684,7 +1116,7 @@ def time_kernels(device, launches: dict, errs: dict) -> list:
             "name": name, "route": "cuda",
             "source": KERNEL_SOURCES[name][0],
             "replaces": KERNEL_SOURCES[name][1],
-            "launches": launches[name], "max_abs_err": errs[name],
+            "max_abs_err": errs[name],
             "ms": device_ms(kern, 100), "plain_ms": device_ms(plain, 20),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -693,12 +1125,12 @@ def time_kernels(device, launches: dict, errs: dict) -> list:
         emit("times", kernel=name, bytes=moved, operations=ops,
              eager_ms=time_ms(kern, 200), eager_plain_ms=time_ms(plain, 50),
              **{k: rows[-1][k] for k in ("ms", "plain_ms", "bound_ms")})
-    rows.append(time_balance_scan(device, launches, errs))
+    rows.append(time_balance_scan(device, errs))
     torch.cuda.synchronize()
     return rows
 
 
-def time_balance_scan(device, launches: dict, errs: dict) -> dict:
+def time_balance_scan(device, errs: dict) -> dict:
     """``balance_scan`` at the federated path's shape (B = 150 replicates,
     N = 4000 tasks, F = 8 sites) on the data that path gives it: one
     admission per replicate per event. Times per call by CUDA events after
@@ -734,7 +1166,6 @@ def time_balance_scan(device, launches: dict, errs: dict) -> dict:
     row = {"name": "balance_scan", "route": "cuda",
            "source": KERNEL_SOURCES["balance_scan"][0],
            "replaces": KERNEL_SOURCES["balance_scan"][1],
-           "launches": launches["balance_scan"],
            "max_abs_err": errs["balance_scan"],
            "ms": time_ms(kern, 200), "plain_ms": time_ms(plain, 50),
            "bound_ms": max(t_bytes, t_ops),
@@ -747,6 +1178,86 @@ def time_balance_scan(device, launches: dict, errs: dict) -> dict:
          device_ms_all_new=device_ms(lambda: kern(every), 20),
          **{k: row[k] for k in ("ms", "plain_ms", "bound_ms")})
     return row
+
+
+def time_model_kernels(device, errs: dict) -> list:
+    """The three model kernels at the serve path's shapes (bf16, B = 8,
+    32 heads of 80, 80 SSM heads of 64, N = 64, chunk 128): device time
+    per call of the kernel, its plain version and, for the attention
+    kernels, one ``scaled_dot_product_attention`` call on the same inputs
+    laid out as it wants them; eager times by CUDA events; the bound from
+    this run's shapes and data (the decode kernel reads only the rows up
+    to kv_len)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import ssm_scan
+
+    gen = torch.Generator(device=device).manual_seed(21)
+    bf16 = torch.bfloat16
+    B, S, H, hd = SERVE_BATCH, SERVE_PROMPT, 32, 80
+    q, k, v = (card_normal(gen, (B, S, H, hd), bf16) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    Sk, kv = SERVE_MAX_SEQ, SERVE_PROMPT + SERVE_NEW // 2
+    q1 = card_normal(gen, (B, 1, H, hd), bf16)
+    ck, cv = (card_normal(gen, (B, Sk, H, hd), bf16) for _ in range(2))
+    kv_len = torch.full((B,), kv, dtype=torch.int32, device=device)
+    q1t, ckt, cvt = (t.transpose(1, 2).contiguous() for t in (q1, ck, cv))
+    mask = (torch.arange(Sk, device=device) < kv_len[:, None])[:, None, None]
+    ssd = ssd_inputs(gen, B, S, 80, 64, 64, bf16)
+    Q, nc = 128, S // 128
+    table = {
+        # name: (kernel, plain, library, bytes, operations, rate, rate name)
+        "flash_attention": (
+            lambda: flash_attention.flash_attention(q, k, v, causal=True),
+            lambda: flash_attention.flash_attention_plain(q, k, v,
+                                                          causal=True),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True),
+            nbytes(q, k, v, q), 4 * B * H * hd * S * (S + 1) // 2,
+            BF16_OPS_PER_S, "bf16 tensor cores, 989 TFLOP/s"),
+        "decode_attention": (
+            lambda: decode_attention.decode_attention(q1, ck, cv, kv_len),
+            lambda: decode_attention.decode_attention_plain(q1, ck, cv,
+                                                            kv_len),
+            lambda: F.scaled_dot_product_attention(q1t, ckt, cvt,
+                                                   attn_mask=mask,
+                                                   enable_gqa=True),
+            nbytes(q1, q1, kv_len) + 2 * B * H * kv * hd * 2,
+            4 * B * H * kv * hd,
+            BF16_OPS_PER_S, "bf16 tensor cores, 989 TFLOP/s"),
+        "ssd_scan": (
+            lambda: ssm_scan.ssm_scan(*ssd, chunk=Q),
+            lambda: ssm_scan.ssd_scan_plain(*ssd, chunk=Q),
+            None,
+            nbytes(*ssd, ssd[0]) + B * 80 * 64 * 64 * 4,
+            2 * B * 80 * nc * (Q * (Q + 1) // 2 * (64 + 64) + 2 * Q * 64 * 64),
+            F32_OPS_PER_S, "float32 CUDA cores, 67 TFLOP/s"),
+    }
+    rows = []
+    for name, (kern, plain, lib, moved, ops, rate, rate_name) in \
+            table.items():
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / rate * 1e3
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": KERNEL_SOURCES[name][0],
+            "replaces": KERNEL_SOURCES[name][1],
+            "max_abs_err": errs[name],
+            "ms": device_ms(kern, 20), "plain_ms": device_ms(plain, 5),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None if lib is None else device_ms(lib, 20),
+        })
+        emit("times", kernel=name, bytes=moved, operations=ops,
+             rate=rate_name, eager_ms=time_ms(kern, 20),
+             eager_plain_ms=time_ms(plain, 5),
+             eager_library_ms=None if lib is None else time_ms(lib, 20),
+             **{k: rows[-1][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "library_ms")})
+    torch.cuda.synchronize()
+    return rows
 
 
 def main(argv=None) -> int:
@@ -768,6 +1279,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build  # fails outside a checkout
 
     t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     smi = nvidia_smi()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
@@ -785,6 +1298,16 @@ def main(argv=None) -> int:
 
     errs = check_kernels(device)
     check_federation_kernels(device, errs)
+    check_model_kernels(device, errs)
+    # Times and profiles come before the long runs: late in a process
+    # that has launched millions of kernels, torch.profiler was seen to
+    # drop device records (fewer microseconds than the bound, then none).
+    rows = time_kernels(device, errs) + time_model_kernels(device, errs)
+    profile_main_path(device, args.reps, args.tasks, args.fed_reps)
+    serve, params_bf16, prompt = run_serve_path(device)
+    run_serve_parity(device, params_bf16, prompt)
+    del params_bf16
+    torch.cuda.empty_cache()
     if args.reps != 30 or args.tasks != 2000:
         emit("cut", reps=args.reps, tasks=args.tasks,
              note="flat path run below paper scale (30 reps x 2000 tasks)")
@@ -793,12 +1316,11 @@ def main(argv=None) -> int:
              note="federated path run below paper scale (30 reps)")
     flat = run_main_path(device, args.reps, args.tasks)
     fed = run_federated_path(device, args.fed_reps)
-    launches = {k: flat[k] + fed[k] for k in flat}
-    profile_main_path(device, args.reps, args.tasks, args.fed_reps)
-    rows = time_kernels(device, launches, errs)
+    paths = {"flat": flat, "federated": fed, "serve": serve}
     for row in rows:
-        row["launches_by_path"] = {"flat": flat[row["name"]],
-                                   "federated": fed[row["name"]]}
+        row["launches_by_path"] = {path: p.get(row["name"], 0)
+                                   for path, p in paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
     emit("done", seconds=time.perf_counter() - t_start)
 
     print(smi)

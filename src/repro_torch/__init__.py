@@ -2,11 +2,15 @@
 
 The package mirrors the JAX package ``repro`` module for module
 (``repro_torch/core/engine.py`` is the counterpart of
-``repro/core/engine.py``, and so on) and covers the flat, single-site
-sweep: trace synthesis, the batched event loop, the eight composed
-mapping policies and the sweep CLI. The three per-event map-decision
-kernels (``kernels/map_fused`` and ``kernels/phase1_map``) are CUDA C++
-written for Hopper (``kernels/csrc``), built with ``nvcc`` at first use.
+``repro/core/engine.py``, and so on) and covers the sweep over flat and
+federated systems (trace synthesis, the batched event loop, the eight
+composed mapping policies, the dispatchers and the sweep CLI) and the
+model substrate's serving path for the dense and hybrid families
+(``configs``, ``models``, ``train.steps.make_serve_steps``). Every
+kernel of the reference (``kernels/map_fused``, ``kernels/phase1_map``,
+``kernels/flash_attention``, ``kernels/decode_attention``,
+``kernels/ssm_scan``) is CUDA C++ written for Hopper (``kernels/csrc``),
+built with ``nvcc`` at first use.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device and no explicit device they raise.

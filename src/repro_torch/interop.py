@@ -1,10 +1,10 @@
-"""Carry a system and traffic, as numpy arrays, into the port.
+"""Carry a system, traffic or model weights, as numpy arrays, into the port.
 
-This system has no weights: what two implementations must share to be
-compared is the machine table and the tasks. These helpers take numpy
-arrays (any array with ``__array__``) and build the port's types; they
-never import the JAX package, so a caller holding the reference's arrays
-converts them with ``numpy.asarray`` first.
+For the scheduler, what two implementations must share to be compared is
+the machine table and the tasks; for the model substrate, the parameter
+tree. These helpers take numpy arrays (any array with ``__array__``) and
+build the port's types; they never import the JAX package, so a caller
+holding the reference's arrays converts them with ``numpy.asarray`` first.
 """
 from __future__ import annotations
 
@@ -111,3 +111,53 @@ def context_from_arrays(*, now, pending, task_type, deadline, avail_base,
                             p_idle=to(p_idle, np.float32)),
         suffered=to(suffered, np.bool_),
     )
+
+
+def _tensor_from_array(a, dtype: torch.dtype, where: str, device):
+    """One parameter leaf, bit for bit. A ``bfloat16`` numpy array (the
+    ``ml_dtypes`` type JAX hands out) is read as uint16 and reinterpreted,
+    so ``ml_dtypes`` is never imported."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        if dtype != torch.bfloat16:
+            raise TypeError(f"{where}: bfloat16 array for a {dtype} leaf")
+        t = torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+        if t.dtype != dtype:
+            raise TypeError(f"{where}: {a.dtype} array for a {dtype} leaf")
+    return t.to(device)
+
+
+def model_params_from_arrays(cfg, tree, device=None) -> dict:
+    """The port's parameters from the reference's parameter tree.
+
+    ``tree`` is the JAX package's pytree for ``cfg`` as nested dicts of
+    numpy arrays (per-layer leaves stacked ``(L, ...)``), for example
+    ``jax.tree.map(np.asarray, params)``. Every leaf must be there with
+    the port's shape and dtype, and nothing else: a missing or extra key,
+    a shape or a dtype that differs raises. Values are carried bit for
+    bit, bfloat16 included. Returns nested dicts of tensors on ``device``
+    (``None`` = CUDA).
+    """
+    from repro_torch.models.transformer import param_spec
+
+    dev = resolve_device(device)
+
+    def walk(spec, sub, where):
+        if not isinstance(spec, dict):
+            if tuple(np.shape(sub)) != spec.shape:
+                raise ValueError(f"{where}: shape {tuple(np.shape(sub))}, "
+                                 f"expected {spec.shape}")
+            return _tensor_from_array(sub, spec.dtype, where, dev)
+        if not isinstance(sub, dict):
+            raise ValueError(f"{where}: expected a dict of leaves")
+        missing = sorted(set(spec) - set(sub))
+        extra = sorted(set(sub) - set(spec))
+        if missing or extra:
+            raise KeyError(f"{where or 'params'}: missing {missing}, "
+                           f"extra {extra}")
+        return {k: walk(spec[k], sub[k], f"{where}/{k}") for k in spec}
+
+    return walk(param_spec(cfg), tree, "")

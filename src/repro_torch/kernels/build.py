@@ -8,8 +8,10 @@ is rebuilt at its next use and an unchanged one is loaded as it is.
 waits for them together.
 
 ``-fmad=false`` keeps every multiply and add a separate rounding: the
-kernels' decisions are compared bit for bit with their plain PyTorch
-versions.
+scheduling kernels' decisions are compared bit for bit with their plain
+PyTorch versions. The model kernels (attention, SSD scan) are held to a
+tolerance and fuse their products with explicit ``fmaf``, which the flag
+leaves alone.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-SOURCES = ("map_fused", "phase1_map", "balance_scan")
+SOURCES = ("map_fused", "phase1_map", "balance_scan", "flash_attention",
+           "decode_attention", "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

@@ -47,6 +47,12 @@ def raise_on(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed with CUDA error {rc}")
 
 
-#: ctypes argument types: a pointer (device address or stream) and an int.
+#: The element dtypes the model kernels take, by their code in the C
+#: interfaces.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: ctypes argument types: a pointer (device address or stream), an int and
+#: a 64-bit int (element strides).
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+LL = ctypes.c_longlong

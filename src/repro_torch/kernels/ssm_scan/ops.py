@@ -1,0 +1,158 @@
+"""The chunked Mamba2 (SSD) scan: the wrapper and its plain version.
+
+Counterpart of ``repro/kernels/ssm_scan`` (``ops.ssm_scan`` over the TPU
+kernel ``ssd_scan_bhlp``), with the contract of
+``repro_torch.models.ssm.ssd_chunked``: x (B, L, H, P), dt (B, L, H), A
+(H,), Bm and Cm (B, L, N); returns y (B, L, H, P) in x's dtype and the
+final state (B, H, N, P) in float32. L must be a multiple of the chunk
+``Q = min(chunk, L)``.
+
+Per (b, h) and chunk, with ``loga = dt * A`` formed here in float32 and
+``cl`` its inclusive cumsum inside the chunk (taken in float64 and
+rounded once, so that it does not depend on the order of the sum), the
+kernel computes
+
+    y_i  = sum_{j <= i} (C_i . B_j) exp(cl_i - cl_j) dt_j x_j
+           + exp(cl_i) C_i . S
+    S   <- exp(cl_last) S + sum_j B_j (x_j exp(cl_last - cl_j) dt_j)^T
+
+carrying the (N, P) state S from chunk to chunk, all in float32. The
+decay is formed only for j <= i: for j > i ``exp`` could overflow, and a
+mask times inf would give NaN.
+
+The wrapper runs :func:`ssd_scan_plain` when every input lies on the CPU,
+and otherwise launches the CUDA kernel (``csrc/ssm_scan.cu``) or raises.
+``LAUNCHES`` counts kernel launches, and nothing else.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.common import (
+    DTYPE_CODES,
+    INT,
+    LL,
+    PTR,
+    cuda_device,
+    on_cpu,
+    raise_on,
+    stream_ptr,
+)
+
+#: Kernel launches since the last reset (the CPU path never counts).
+LAUNCHES = {"ssd_scan": 0}
+#: Shared memory one block may use on the card (H100: 227 KB).
+MAX_SHARED_BYTES = 232_448
+
+_LIB: list = []
+
+
+def _lib():
+    if not _LIB:
+        lib = build.load("ssm_scan")
+        lib.ssd_scan_launch.argtypes = (
+            [PTR] * 7 + [INT] * 7 + [INT] + [LL] * 3 + [PTR])
+        lib.ssd_scan_launch.restype = INT
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def chunk_of(L: int, chunk: int) -> int:
+    """The chunk length ``min(chunk, L)``; raises unless it divides L."""
+    Q = min(chunk, L)
+    if L % Q:
+        raise ValueError(f"seq {L} not divisible by chunk {Q}")
+    return Q
+
+
+def shared_bytes(Q: int, N: int, P: int) -> int:
+    """The kernel's shared memory for chunk Q, state N and head dim P:
+    B (at an odd row stride) and C tiles, x, the (Q, Q) weights, the
+    (N, P) state and four length-Q vectors, float32."""
+    return 4 * (Q * (N | 1) + Q * N + Q * P + Q * Q + N * P + 4 * Q)
+
+
+def ssd_scan_plain(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """What the ``ssd_scan`` kernel computes, in PyTorch ops, chunk by
+    chunk over all (b, h) at once. Arguments and results as
+    :func:`ssm_scan`."""
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = chunk_of(L, chunk)
+    f32 = torch.float32
+    dtf = dt.to(f32)
+    loga = dtf * A.to(f32)[None, None, :]
+    Bf, Cf = Bm.to(f32), Cm.to(f32)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    S = torch.zeros((B, H, N, P), dtype=f32, device=x.device)
+    ys = []
+    for c0 in range(0, L, Q):
+        sl = slice(c0, c0 + Q)
+        xc = x[:, sl].to(f32).permute(0, 2, 1, 3)          # (B, H, Q, P)
+        dtc = dtf[:, sl].permute(0, 2, 1)                   # (B, H, Q)
+        cl = loga[:, sl].permute(0, 2, 1).to(torch.float64).cumsum(-1).to(
+            f32)                                            # inclusive
+        Bc, Cc = Bf[:, sl], Cf[:, sl]                       # (B, Q, N)
+        seg = cl[..., :, None] - cl[..., None, :]           # cl_i - cl_j
+        decay = torch.exp(torch.where(causal, seg,
+                                      torch.full((), -torch.inf,
+                                                 device=x.device)))
+        CB = (Cc @ Bc.transpose(1, 2))[:, None]             # (B, 1, Q, Q)
+        w = CB * decay * dtc[..., None, :]
+        y = w @ xc + torch.exp(cl)[..., None] * (Cc[:, None] @ S)
+        segl = torch.exp(cl[..., -1:] - cl)
+        xw = xc * (segl * dtc)[..., None]
+        S = torch.exp(cl[..., -1])[..., None, None] * S \
+            + Bc.transpose(1, 2)[:, None] @ xw
+        ys.append(y)
+    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3)
+    return y.to(x.dtype), S
+
+
+def ssm_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """The chunked SSD scan as one kernel call.
+
+    x (B, L, H, P) float32 or bfloat16, read through its strides (the
+    model passes a view into the conv output); dt (B, L, H), A (H,), Bm
+    and Cm (B, L, N), any float dtype (taken to float32 here). Returns
+    ``(y (B, L, H, P) in x's dtype, S (B, H, N, P) float32)``.
+    """
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, L, H, P), got {tuple(x.shape)}")
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
+    for name, t, shape in (("dt", dt, (B, L, H)), ("A", A, (H,)),
+                           ("Bm", Bm, (B, L, N)), ("Cm", Cm, (B, L, N))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    Q = chunk_of(L, chunk)
+    if on_cpu(x, dt, A, Bm, Cm):
+        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    dev = cuda_device(x)
+    for name, t in (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if shared_bytes(Q, N, P) > MAX_SHARED_BYTES:
+        raise ValueError(f"chunk {Q}, state {N}, head dim {P} need "
+                         f"{shared_bytes(Q, N, P)} B of shared memory, above "
+                         f"{MAX_SHARED_BYTES}")
+    f32 = torch.float32
+    if x.stride(-1) != 1:
+        x = x.contiguous()
+    dtf = dt.to(f32).contiguous()
+    loga = (dtf * A.to(f32)[None, None, :]).contiguous()
+    Bf, Cf = Bm.to(f32).contiguous(), Cm.to(f32).contiguous()
+    y = torch.empty((B, L, H, P), dtype=x.dtype, device=dev)
+    S = torch.empty((B, H, N, P), dtype=f32, device=dev)
+    rc = _lib().ssd_scan_launch(
+        x.data_ptr(), dtf.data_ptr(), loga.data_ptr(), Bf.data_ptr(),
+        Cf.data_ptr(), y.data_ptr(), S.data_ptr(), B, L, H, P, N, Q,
+        shared_bytes(Q, N, P), DTYPE_CODES[x.dtype], *x.stride()[:3],
+        stream_ptr(dev))
+    raise_on(rc, "ssd_scan")
+    LAUNCHES["ssd_scan"] += 1
+    return y, S
