@@ -4,6 +4,7 @@
     python3 chip_smoke.py                # the full check, on one card
     python3 chip_smoke.py --reps 10      # a shorter flat path
     python3 chip_smoke.py --fed-reps 10  # a shorter federated path
+    python3 chip_smoke.py --kernels-only # phases 1-5, then stop
 
 The port's float32 products stay in float32 (TF32 is switched off for
 matmuls and cuDNN alike).
@@ -13,7 +14,11 @@ raises, so the script exits non-zero and prints no result line:
 
   1. env      torch and CUDA versions, the card's name and power limit;
   2. build    nvcc builds the kernels from ``src/repro_torch/kernels/csrc``,
-              one process per source, all at once;
+              one process per source, all at once; ptxas's registers and
+              spills, and per library the count of tensor-core (HGMMA:
+              wgmma, HMMA: mma.sync) and 128-bit global-load instructions
+              in its SASS (``cuobjdump``): flash attention must issue
+              wgmma and decode attention 16-byte loads;
   3. kernels  each scheduling kernel against its plain PyTorch version on
               the card, bit for bit (``torch.equal`` on every output): the
               map kernels at the flat path's shape and at a wide one, over
@@ -26,16 +31,28 @@ raises, so the script exits non-zero and prints no result line:
               against their plain versions on the card, in float32 and
               bfloat16, at ``tests/test_kernels.py``'s shapes (MHA, GQA,
               MQA, Sq != Sk, ragged kv_len, q_offset 64, the four SSD
-              cases) and at the serve path's full-width shapes: attention
-              within atol 1e-5 in float32, the SSD scan within 2e-4,
-              anything in bfloat16 within 2e-2 (sums in another order);
+              cases), at head dims 24, 40 and 256, one query row, a batch
+              row with no valid key, decode with kv_len at the boundaries
+              of its split of the cache over 8 blocks (GQA 8, caches of
+              1088 and 4096), and at the serve path's full-width shapes:
+              attention within atol 1e-5 in float32, the SSD scan within
+              2e-4, anything in bfloat16 within 2e-2 (sums in another
+              order, p rounded to bf16 for the tensor cores); bf16
+              attention also element by element within the bound of
+              ``bf16_attention_bound`` (its two bf16 roundings of the
+              output and the rounding of p), and bf16 flash attention
+              again with q and k at 2.5 N(0, 1), where the softmax is
+              peaked and outputs are O(|v|);
   5. times    per kernel at its path's shape: device time per launch
               (``torch.profiler``), the plain version's device time per
               call, the eager time per call by CUDA events with the host's
               work included, the least time the card could take for the
               same bytes and operations, and for the attention kernels
               one ``scaled_dot_product_attention`` call on the same inputs
-              (timed here, never called by the port);
+              (timed here, never called by the port), each kernel's share
+              of its bound and its ratio to that call; then flash
+              attention's float32 instantiation at the same shape, and
+              decode attention with 2, 4 and 8 query heads per kv head;
   6. profile  where one batched event's time goes: the first 64
               iterations of the flat FELARE and phase1 ELARE sweeps and of
               the federated FELARE + fair_spill sweep on paper_x2 and
@@ -82,16 +99,19 @@ raises, so the script exits non-zero and prints no result line:
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, one
 ``{"kernels": [...]}`` line, and the last line
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. With ``--kernels-only`` the script
+stops after phase 5 and prints neither line.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import pathlib
 import subprocess
 import sys
 import time
+from functools import partial
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -118,13 +138,13 @@ MASKED_ROWS = dict(B=150, sites=(0,) * 4 + (1,) * 4 + (2,) * 4 + (3,) * 8,
                    N=TIER_TASKS, S=4)
 KERNEL_SOURCES = {
     "map_decide": ("src/repro_torch/kernels/csrc/map_fused.cu",
-                   "src/repro/kernels/map_fused/kernel.py:181"),
+                   "src/repro/kernels/map_fused/kernel.py:195"),
     "evict_stats": ("src/repro_torch/kernels/csrc/map_fused.cu",
-                    "src/repro/kernels/map_fused/kernel.py:237"),
+                    "src/repro/kernels/map_fused/kernel.py:246"),
     "phase1_map": ("src/repro_torch/kernels/csrc/phase1_map.cu",
-                   "src/repro/kernels/phase1_map/kernel.py:42"),
+                   "src/repro/kernels/phase1_map/kernel.py:47"),
     "balance_scan": ("src/repro_torch/kernels/csrc/balance_scan.cu",
-                     "src/repro/kernels/map_fused/kernel.py:289"),
+                     "src/repro/kernels/map_fused/kernel.py:296"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:88"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -138,21 +158,40 @@ SERVE_ARCH = "zamba2-2.7b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 1024, 64
 SERVE_MAX_SEQ = SERVE_PROMPT + SERVE_NEW
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# The spread of q and k in the flash cases: 0.5 N(0, 1) as in
+# tests/test_kernels.py (scores of std 0.25, a nearly flat softmax), and
+# in bf16 also 2.5 N(0, 1) (std 6.25, a peaked one).
+QK_SCALES = {"float32": (0.5,), "bfloat16": (0.5, 2.5)}
 SSD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # tests/test_kernels.py's shapes, then the serve path's.
-FLASH_CASES = (  # B, Sq, Sk, H, Hkv, hd, causal, q_offset, ragged kv_len
-    (2, 128, 128, 4, 4, 64, True, 0, False),
-    (2, 128, 128, 4, 2, 64, True, 0, False),
-    (2, 256, 256, 8, 1, 32, True, 0, False),
-    (2, 64, 192, 4, 2, 128, False, 0, False),
-    (2, 32, 128, 2, 2, 32, True, 64, True),
-    (2, 100, 130, 4, 1, 80, True, 30, True),
-    (8, 1024, 1024, 32, 32, 80, True, 0, False),
+FLASH_CASES = (  # B, Sq, Sk, H, Hkv, hd, causal, q_offset, kv_len
+    (2, 128, 128, 4, 4, 64, True, 0, None),
+    (2, 128, 128, 4, 2, 64, True, 0, None),
+    (2, 256, 256, 8, 1, 32, True, 0, None),
+    (2, 64, 192, 4, 2, 128, False, 0, None),
+    (2, 32, 128, 2, 2, 32, True, 64, "ragged"),
+    (2, 100, 130, 4, 1, 80, True, 30, "ragged"),
+    # head dims off the tensor cores' 16-column grain, the widest, one
+    # query row, and a batch row with no valid key (the mean of V)
+    (2, 96, 130, 4, 2, 24, True, 34, "ragged"),
+    (2, 96, 130, 4, 2, 40, False, 0, "zero"),
+    (2, 96, 130, 4, 2, 256, True, 34, "ragged"),
+    (4, 1, 200, 8, 2, 80, False, 0, "zero"),
+    (8, 1024, 1024, 32, 32, 80, True, 0, None),
 )
 DECODE_CASES = (  # B, Sk, H, Hkv, hd
     (2, 256, 4, 4, 64), (2, 512, 8, 2, 64), (2, 1024, 4, 1, 128),
     (2, 192, 2, 2, 32), (8, SERVE_MAX_SEQ, 32, 32, 80),
 )
+# Decode at the boundaries of the kernel's split of the cache over 8 blocks
+# (chunks of ceil(Sk / 8) keys rounded up to 8), 8 query heads per kv head.
+DECODE_SPLIT_CASES = (  # B, Sk, H, Hkv, hd
+    (8, SERVE_MAX_SEQ, 16, 2, 80), (8, 4096, 16, 2, 128),
+)
+# Decode under GQA, timed: B, Sk, kv_len, Hkv, hd and the query heads per
+# kv head.
+DECODE_GQA = dict(B=8, Sk=SERVE_MAX_SEQ, kv=SERVE_PROMPT + SERVE_NEW // 2,
+                  Hkv=8, hd=80, g=(2, 4, 8))
 SSD_CASES = (  # B, L, H, P, N, chunk
     (2, 64, 2, 32, 16, 16), (2, 128, 4, 64, 64, 32), (2, 96, 1, 16, 8, 32),
     (2, 256, 2, 64, 32, 128), (8, SERVE_PROMPT, 80, 64, 64, 128),
@@ -166,6 +205,23 @@ def emit(phase: str, **fields) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def sass_counts(build) -> dict:
+    """Per library, how many tensor-core (HGMMA: wgmma, HMMA: mma.sync)
+    and 128-bit global-load instructions its SASS holds (cuobjdump)."""
+    import re
+
+    tool = pathlib.Path(build.nvcc()).parent / "cuobjdump"
+    out = {}
+    for name in build.SOURCES:
+        text = subprocess.run(
+            [str(tool), "-sass", str(build.lib_path(name))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        out[name] = {op: len(re.findall(pat, text)) for op, pat in (
+            ("HGMMA", r"\bHGMMA\."), ("HMMA", r"\bHMMA\."),
+            ("LDG.E.128", r"\bLDG\.E\.128\b"))}
+    return out
 
 
 def nvidia_smi() -> str:
@@ -390,6 +446,18 @@ def card_normal(gen, shape, dtype, scale=0.5):
     return (x * scale).to(dtype)
 
 
+def bf16_attention_bound(plain, q, k, v):
+    """Per element, how far a bf16 attention kernel may lie from the plain
+    version ``plain(q, k, v)``. Both round a float32 output x to bf16 (at
+    most 2^-8 |x| each); the tensor-core kernel also rounds each p to bf16
+    before P.V, which moves an output by at most 2^-8 sum_j p_j |v_j| / l,
+    the plain version on |v|; 2^-11 of that covers float32 sums in another
+    order."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    return (2.0 ** -7 * plain(qf, kf, vf).abs()
+            + (2.0 ** -8 + 2.0 ** -11) * plain(qf, kf, vf.abs()))
+
+
 def ssd_inputs(gen, B, L, H, P, N, dtype):
     """``tests/test_kernels.py``'s distributions: x, B, C ~ 0.5 N(0, 1),
     dt = softplus(N(0, 1)), A = -exp(0.3 N(0, 1))."""
@@ -414,31 +482,50 @@ def check_model_kernels(device, errs: dict) -> None:
     gen = torch.Generator(device=device).manual_seed(13)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-    def record(name, got, want, tol, case):
+    def record(name, got, want, tol, case, bound=None):
+        """Max abs error within tol, and with a bound (bf16 attention)
+        every element within it; returns the error."""
         torch.cuda.synchronize()
         err = max(float((g.float() - w.float()).abs().max())
                   for g, w in zip(got, want))
-        require(err <= tol, f"{name} {case}: max abs err {err} > {tol}")
+        ratio = 0.0 if bound is None else float(
+            ((got[0].float() - want[0].float()).abs() / bound).max())
+        require(err <= tol and ratio <= 1.0,
+                f"{name} {case}: max abs err {err} (tolerance {tol}), "
+                f"{ratio} of the per-element bf16 bound")
         errs[name] = max(errs[name], err)
+        worst_ratio[name] = max(worst_ratio.get(name, 0.0), ratio)
         return err
+
+    def attention_bound(plain, q, k, v):
+        return None if q.dtype != torch.bfloat16 else \
+            bf16_attention_bound(plain, q, k, v)
 
     for dname, dt in dtypes.items():
         worst = {k: 0.0 for k in ("flash_attention", "decode_attention",
                                   "ssd_scan")}
-        for B, Sq, Sk, H, Hkv, hd, causal, off, ragged in FLASH_CASES:
-            q = card_normal(gen, (B, Sq, H, hd), dt)
-            k = card_normal(gen, (B, Sk, Hkv, hd), dt)
+        worst_ratio = {}
+        for (B, Sq, Sk, H, Hkv, hd, causal, off, lens), qk_scale in \
+                itertools.product(FLASH_CASES, QK_SCALES[dname]):
+            q = card_normal(gen, (B, Sq, H, hd), dt, qk_scale)
+            k = card_normal(gen, (B, Sk, Hkv, hd), dt, qk_scale)
             v = card_normal(gen, (B, Sk, Hkv, hd), dt)
-            kv_len = (torch.randint(1, Sk + 1, (B,), generator=gen,
-                                    device=device, dtype=torch.int32)
-                      if ragged else None)
+            kv_len = None if lens is None else torch.randint(
+                1, Sk + 1, (B,), generator=gen, device=device,
+                dtype=torch.int32)
+            if lens == "zero":
+                kv_len[0] = 0
             kw = dict(causal=causal, kv_len=kv_len, q_offset=off)
+
+            def plain(q, k, v, kw=kw):
+                return flash_attention.flash_attention_plain(q, k, v, **kw)
+
             worst["flash_attention"] = max(worst["flash_attention"], record(
                 "flash_attention", (flash_attention.flash_attention(
-                    q, k, v, **kw),),
-                (flash_attention.flash_attention_plain(q, k, v, **kw),),
+                    q, k, v, **kw),), (plain(q, k, v),),
                 ATTN_TOL[dname], (B, Sq, Sk, H, Hkv, hd, causal, off,
-                                  ragged, dname)))
+                                  lens, qk_scale, dname),
+                attention_bound(plain, q, k, v)))
         for B, Sk, H, Hkv, hd in DECODE_CASES:
             q = card_normal(gen, (B, 1, H, hd), dt)
             k = card_normal(gen, (B, Sk, Hkv, hd), dt)
@@ -449,11 +536,28 @@ def check_model_kernels(device, errs: dict) -> None:
                 if Sk == SERVE_MAX_SEQ else torch.randint(
                     1, Sk, (B,), generator=gen, device=device,
                     dtype=torch.int32)
+            plain = partial(decode_attention.decode_attention_plain,
+                            kv_len=kv_len)
             worst["decode_attention"] = max(worst["decode_attention"], record(
                 "decode_attention",
                 (decode_attention.decode_attention(q, k, v, kv_len),),
-                (decode_attention.decode_attention_plain(q, k, v, kv_len),),
-                ATTN_TOL[dname], (B, Sk, H, Hkv, hd, dname)))
+                (plain(q, k, v),), ATTN_TOL[dname],
+                (B, Sk, H, Hkv, hd, dname), attention_bound(plain, q, k, v)))
+        for B, Sk, H, Hkv, hd in DECODE_SPLIT_CASES:
+            q = card_normal(gen, (B, 1, H, hd), dt)
+            k = card_normal(gen, (B, Sk, Hkv, hd), dt)
+            v = card_normal(gen, (B, Sk, Hkv, hd), dt)
+            c = -(-(-(-Sk // 8)) // 8) * 8          # keys per block
+            kv_len = torch.tensor([0, 1, c, c + 1, 2 * c, 7 * c + 1, Sk - 1,
+                                   Sk][:B], dtype=torch.int32, device=device)
+            plain = partial(decode_attention.decode_attention_plain,
+                            kv_len=kv_len)
+            worst["decode_attention"] = max(worst["decode_attention"], record(
+                "decode_attention",
+                (decode_attention.decode_attention(q, k, v, kv_len),),
+                (plain(q, k, v),), ATTN_TOL[dname],
+                (B, Sk, H, Hkv, hd, "split", dname),
+                attention_bound(plain, q, k, v)))
         for B, L, H, P, N, chunk in SSD_CASES:
             args = ssd_inputs(gen, B, L, H, P, N, dt)
             got = ssm_scan.ssm_scan(*args, chunk=chunk)
@@ -465,8 +569,11 @@ def check_model_kernels(device, errs: dict) -> None:
         emit("model_kernels", dtype=dname, max_abs_err=worst,
              tolerance={"attention": ATTN_TOL[dname],
                         "ssd_scan": SSD_TOL[dname]},
-             cases={"flash_attention": len(FLASH_CASES),
-                    "decode_attention": len(DECODE_CASES),
+             max_share_of_bf16_bound=worst_ratio or None,
+             cases={"flash_attention": len(FLASH_CASES)
+                    * len(QK_SCALES[dname]),
+                    "decode_attention": len(DECODE_CASES)
+                    + len(DECODE_SPLIT_CASES),
                     "ssd_scan": len(SSD_CASES)})
 
 
@@ -1224,7 +1331,7 @@ def time_model_kernels(device, errs: dict) -> list:
             lambda: F.scaled_dot_product_attention(q1t, ckt, cvt,
                                                    attn_mask=mask,
                                                    enable_gqa=True),
-            nbytes(q1, q1, kv_len) + 2 * B * H * kv * hd * 2,
+            nbytes(q1, q1, kv_len) + 2 * B * ck.shape[2] * kv * hd * 2,
             4 * B * H * kv * hd,
             BF16_OPS_PER_S, "bf16 tensor cores, 989 TFLOP/s"),
         "ssd_scan": (
@@ -1250,12 +1357,52 @@ def time_model_kernels(device, errs: dict) -> list:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None if lib is None else device_ms(lib, 20),
         })
+        row = rows[-1]
         emit("times", kernel=name, bytes=moved, operations=ops,
              rate=rate_name, eager_ms=time_ms(kern, 20),
              eager_plain_ms=time_ms(plain, 5),
              eager_library_ms=None if lib is None else time_ms(lib, 20),
-             **{k: rows[-1][k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "library_ms")})
+             share_of_bound=row["bound_ms"] / row["ms"],
+             vs_library=None if lib is None else row["ms"] / row["library_ms"],
+             achieved={"TFLOP/s": ops / row["ms"] * 1e-9,
+                       "TB/s": moved / row["ms"] * 1e-9},
+             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "library_ms")})
+    # The float32 instantiation of flash attention (the CUDA cores) at the
+    # same shape, against the float32 CUDA cores' rate.
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ops = 4 * B * H * hd * S * (S + 1) // 2
+    f32_ms = device_ms(lambda: flash_attention.flash_attention(
+        qf, kf, vf, causal=True), 5)
+    emit("times", kernel="flash_attention", dtype="float32", ms=f32_ms,
+         eager_ms=time_ms(lambda: flash_attention.flash_attention(
+             qf, kf, vf, causal=True), 5),
+         bound_ms=max(nbytes(qf, kf, vf, qf) / HBM_BYTES_PER_S,
+                      ops / F32_OPS_PER_S) * 1e3,
+         rate="float32 CUDA cores, 67 TFLOP/s",
+         library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+             qt.float(), kt.float(), vt.float(), is_causal=True), 5))
+    # Decode under GQA: one block serves the g query heads of a kv head,
+    # so the bytes are those of the Hkv kv heads whatever g is.
+    D = DECODE_GQA
+    B, Hkv, kv = D["B"], D["Hkv"], D["kv"]
+    ck, cv = (card_normal(gen, (B, D["Sk"], Hkv, D["hd"]), bf16)
+              for _ in range(2))
+    kv_len = torch.full((B,), kv, dtype=torch.int32, device=device)
+    mask = (torch.arange(D["Sk"], device=device)
+            < kv_len[:, None])[:, None, None]
+    ckt, cvt = (t.transpose(1, 2).contiguous() for t in (ck, cv))
+    for g in D["g"]:
+        q1 = card_normal(gen, (B, 1, g * Hkv, D["hd"]), bf16)
+        q1t = q1.transpose(1, 2).contiguous()
+        moved = nbytes(q1, q1, kv_len) + 2 * B * Hkv * kv * D["hd"] * 2
+        ms = device_ms(lambda: decode_attention.decode_attention(
+            q1, ck, cv, kv_len), 20)
+        emit("times", kernel="decode_attention", gqa=g, shape=dict(
+            B=B, Sk=D["Sk"], kv_len=kv, H=g * Hkv, Hkv=Hkv, hd=D["hd"]),
+            ms=ms, bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                q1t, ckt, cvt, attn_mask=mask, enable_gqa=True), 20))
     torch.cuda.synchronize()
     return rows
 
@@ -1269,6 +1416,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fed-reps", type=int, default=30,
                     help="replicates per rate on the federated path "
                          "(default 30)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build, check and time the kernels (phases 1-5), "
+                         "then stop without a result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -1292,9 +1442,19 @@ def main(argv=None) -> int:
     regs = {k: sorted({int(ln.split("Used ")[1].split()[0])
                        for ln in v["log"].splitlines() if "registers" in ln})
             for k, v in logs.items()}
+    spills = {k: max([int(ln.split("bytes spill stores")[0].split(",")[-1])
+                      for ln in v["log"].splitlines()
+                      if "bytes spill stores" in ln] or [0])
+              for k, v in logs.items()}
+    sass = sass_counts(build)
     emit("build", wall_seconds=time.perf_counter() - t_build,
          seconds={k: v["seconds"] for k, v in logs.items()},
-         registers_per_thread={k: [r[0], r[-1]] for k, r in regs.items()})
+         registers_per_thread={k: [r[0], r[-1]] for k, r in regs.items()},
+         max_spill_store_bytes=spills, sass=sass)
+    require(sass["flash_attention"]["HGMMA"] > 0,
+            "flash_attention: no wgmma (HGMMA) in its SASS")
+    require(sass["decode_attention"]["LDG.E.128"] > 0,
+            "decode_attention: no 128-bit global loads in its SASS")
 
     errs = check_kernels(device)
     check_federation_kernels(device, errs)
@@ -1303,6 +1463,9 @@ def main(argv=None) -> int:
     # that has launched millions of kernels, torch.profiler was seen to
     # drop device records (fewer microseconds than the bound, then none).
     rows = time_kernels(device, errs) + time_model_kernels(device, errs)
+    if args.kernels_only:
+        emit("done", kernels_only=True, seconds=time.perf_counter() - t_start)
+        return 0
     profile_main_path(device, args.reps, args.tasks, args.fed_reps)
     serve, params_bf16, prompt = run_serve_path(device)
     run_serve_parity(device, params_bf16, prompt)

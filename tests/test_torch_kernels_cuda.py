@@ -12,6 +12,7 @@ Without a CUDA device the test skips. ``kernel_inputs`` is shared with
 against the JAX package's kernels on the CPU.
 """
 import itertools
+from functools import partial
 
 import numpy as np
 import pytest
@@ -149,6 +150,31 @@ def card_normal(shape, seed, dtype=torch.float32, scale=0.5):
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
+def bf16_attention_bound(plain, q, k, v):
+    """Per element, how far a bf16 attention kernel may lie from the plain
+    version (as in ``chip_smoke.py``): 2^-8 |x| for each of the two bf16
+    roundings of the float32 output x, 2^-8 sum_j p_j |v_j| / l (the plain
+    version on |v|) for rounding p before P.V, and 2^-11 of that for
+    float32 sums in another order."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    return (2.0 ** -7 * plain(qf, kf, vf).abs()
+            + (2.0 ** -8 + 2.0 ** -11) * plain(qf, kf, vf.abs()))
+
+
+def assert_attention_close(got, plain, q, k, v):
+    """``got`` against ``plain(q, k, v)``: within atol 1e-5 in float32; in
+    bf16 within 2e-2 and, element by element, within the bf16 bound."""
+    torch.cuda.synchronize()
+    want = plain(q, k, v)
+    assert got.dtype == want.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=ATTN_TOL[q.dtype])
+    if q.dtype == torch.bfloat16:
+        excess = (got.float() - want.float()).abs() \
+            / bf16_attention_bound(plain, q, k, v)
+        assert float(excess.max()) <= 1.0, float(excess.max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Sq,Sk,H,Hkv,hd,q_offset", [
@@ -170,11 +196,7 @@ def test_flash_attention_matches_plain_on_card(Sq, Sk, H, Hkv, hd, q_offset,
         for kl in (None, kv_len):
             kw = dict(causal=causal, kv_len=kl, q_offset=q_offset)
             got = flash_attention.flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
-            want = flash_attention.flash_attention_plain(q, k, v, **kw)
-            assert got.dtype == dtype
-            torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                                       atol=ATTN_TOL[dtype])
+            assert_attention_close(got, flash_plain(**kw), q, k, v)
 
 
 @pytest.mark.cuda
@@ -193,10 +215,7 @@ def test_decode_attention_matches_plain_on_card(Sk, H, Hkv, hd, dtype):
     kv_len = torch.tensor([Sk, 0, Sk // 3 + 1], dtype=torch.int32,
                           device="cuda")
     got = decode_attention.decode_attention(q, k, v, kv_len)
-    torch.cuda.synchronize()
-    want = decode_attention.decode_attention_plain(q, k, v, kv_len)
-    torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                               atol=ATTN_TOL[dtype])
+    assert_attention_close(got, decode_plain(kv_len), q, k, v)
 
 
 @pytest.mark.cuda
@@ -226,3 +245,153 @@ def test_ssm_scan_matches_plain_on_card(L, H, P, N, chunk, dtype):
         y.float(), wy.float(), rtol=0,
         atol=2e-4 if dtype == torch.float32 else 2e-2)
     torch.testing.assert_close(S, wS, rtol=0, atol=2e-4)
+
+
+def flash_plain(**kw):
+    return partial(flash_attention.flash_attention_plain, **kw)
+
+
+def decode_plain(kv_len):
+    return partial(decode_attention.decode_attention_plain, kv_len=kv_len)
+
+
+def split_chunk(Sk):
+    """Keys per block of the decode kernel's split over 8 blocks: ceil(Sk /
+    8) rounded up to a multiple of 8."""
+    return -(-(-(-Sk // 8)) // 8) * 8
+
+
+def needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sk,hd", [(1088, 80), (4096, 128), (1089, 64)])
+def test_decode_attention_split_boundaries_on_card(Sk, hd, dtype):
+    """GQA with 8 query heads per kv head, kv_len at and around the
+    boundaries of the 8 blocks' key chunks: none, one key, a chunk, a chunk
+    and one, every key (chunks wholly past kv_len give empty partials)."""
+    needs_card()
+    c = split_chunk(Sk)
+    lens = [0, 1, c, c + 1, 2 * c, 7 * c + 1, Sk - 1, Sk]
+    B, H, Hkv = len(lens), 16, 2
+    q = card_normal((B, 1, H, hd), Sk, dtype)
+    k = card_normal((B, Sk, Hkv, hd), Sk + 1, dtype)
+    v = card_normal((B, Sk, Hkv, hd), Sk + 2, dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = decode_attention.decode_attention(q, k, v, kv_len)
+    assert_attention_close(got, decode_plain(kv_len), q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [24, 40, 256])
+def test_flash_attention_odd_head_dims_on_card(hd, dtype):
+    """Head dims off the 16-column grain of the tensor-core kernel (24,
+    40) and at its widest (256), causal and not, with every key, a ragged
+    kv_len and a row with none."""
+    needs_card()
+    Sq, Sk, H, Hkv = 96, 130, 4, 2
+    q = card_normal((3, Sq, H, hd), hd, dtype)
+    k = card_normal((3, Sk, Hkv, hd), hd + 1, dtype)
+    v = card_normal((3, Sk, Hkv, hd), hd + 2, dtype)
+    kv_len = torch.tensor([Sk, 0, 71], dtype=torch.int32, device="cuda")
+    for causal in (True, False):
+        for kl in (None, kv_len):
+            kw = dict(causal=causal, kv_len=kl, q_offset=Sk - Sq)
+            got = flash_attention.flash_attention(q, k, v, **kw)
+            assert_attention_close(got, flash_plain(**kw), q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_single_query_row_on_card(dtype):
+    """Sq = 1 without the causal mask: one row of one warpgroup's 64."""
+    needs_card()
+    q = card_normal((4, 1, 8, 80), 5, dtype)
+    k = card_normal((4, 200, 2, 80), 6, dtype)
+    v = card_normal((4, 200, 2, 80), 7, dtype)
+    kv_len = torch.tensor([200, 0, 1, 65], dtype=torch.int32, device="cuda")
+    for kl in (None, kv_len):
+        got = flash_attention.flash_attention(q, k, v, causal=False,
+                                              kv_len=kl)
+        assert_attention_close(got, flash_plain(causal=False, kv_len=kl),
+                               q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qk_scale", [0.5, 2.5])
+def test_flash_attention_serve_shape_on_card(qk_scale):
+    """The serve path's prefill: B 8, S 1024, 32 heads of 80, bf16, with q
+    and k spread as in tests/test_kernels.py and five times wider (a
+    peaked softmax: outputs O(|v|), so a lost or stale tile shows)."""
+    needs_card()
+    q, k = (card_normal((8, 1024, 32, 80), s, torch.bfloat16, qk_scale)
+            for s in (1, 2))
+    v = card_normal((8, 1024, 32, 80), 3, torch.bfloat16)
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    assert_attention_close(got, flash_plain(causal=True), q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,H,Hkv,hd,q_offset", [
+    (200, 330, 4, 2, 80, 130), (64, 512, 8, 8, 64, 448),
+    (130, 130, 4, 1, 40, 0),
+])
+def test_flash_attention_peaked_scores_on_card(Sq, Sk, H, Hkv, hd,
+                                               q_offset):
+    """bf16 with q and k at 2.5 N(0, 1): scores of std 6.25, so every key
+    tile that a row reaches moves its output, ragged kv_len included."""
+    needs_card()
+    q = card_normal((3, Sq, H, hd), 11, torch.bfloat16, 2.5)
+    k = card_normal((3, Sk, Hkv, hd), 12, torch.bfloat16, 2.5)
+    v = card_normal((3, Sk, Hkv, hd), 13, torch.bfloat16)
+    kv_len = torch.tensor([Sk, 0, Sk // 2 + 5], dtype=torch.int32,
+                          device="cuda")
+    for causal in (True, False):
+        for kl in (None, kv_len):
+            kw = dict(causal=causal, kv_len=kl, q_offset=q_offset)
+            got = flash_attention.flash_attention(q, k, v, **kw)
+            assert_attention_close(got, flash_plain(**kw), q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_reads_strides_that_bar_wide_loads_on_card(dtype):
+    """Views whose row stride is odd: no 16-byte copy or TMA box fits, so
+    the kernels read element by element, with the same result."""
+    needs_card()
+    wide = card_normal((2, 130, 3, 81), 8, dtype)
+    q = card_normal((2, 70, 3, 81), 9, dtype)[..., :80]
+    k, v = wide[..., :80], wide[..., 1:]
+    assert k.stride(1) % 2 == 1
+    kv_len = torch.tensor([130, 57], dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, kv_len=kv_len, q_offset=60)
+    got = flash_attention.flash_attention(q, k, v, **kw)
+    assert_attention_close(got, flash_plain(**kw), q, k, v)
+    got = decode_attention.decode_attention(q[:, :1], k, v, kv_len)
+    assert_attention_close(got, decode_plain(kv_len), q[:, :1], k, v)
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_count_one_launch_per_call():
+    """Each call on the card adds exactly one to its wrapper's count."""
+    needs_card()
+    q = card_normal((2, 64, 4, 80), 1, torch.bfloat16)
+    k = card_normal((2, 64, 2, 80), 2, torch.bfloat16)
+    kv_len = torch.tensor([64, 5], dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, kd = q.to(dtype), k.to(dtype)
+        for n in (1, 3):
+            before = flash_attention.LAUNCHES["flash_attention"]
+            for _ in range(n):
+                flash_attention.flash_attention(qd, kd, kd, causal=True)
+            assert flash_attention.LAUNCHES["flash_attention"] == before + n
+            before = decode_attention.LAUNCHES["decode_attention"]
+            for _ in range(n):
+                decode_attention.decode_attention(qd[:, :1], kd, kd, kv_len)
+            assert decode_attention.LAUNCHES["decode_attention"] \
+                == before + n
+    torch.cuda.synchronize()
