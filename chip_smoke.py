@@ -15,10 +15,13 @@ raises, so the script exits non-zero and prints no result line:
   1. env      torch and CUDA versions, the card's name and power limit;
   2. build    nvcc builds the kernels from ``src/repro_torch/kernels/csrc``,
               one process per source, all at once; ptxas's registers and
-              spills, and per library the count of tensor-core (HGMMA:
-              wgmma, HMMA: mma.sync) and 128-bit global-load instructions
-              in its SASS (``cuobjdump``): flash attention must issue
-              wgmma and decode attention 16-byte loads;
+              spills, and per library and kernel function the count of
+              tensor-core (HGMMA: wgmma, HMMA: mma.sync), 128-bit
+              global-load and shared-atomic (ATOMS) instructions in its
+              SASS (``cuobjdump``): flash attention must issue wgmma,
+              decode attention 16-byte loads, every tensor-core instance of
+              the SSD scan mma.sync without spilling, and map_decide's
+              instances for up to 8 machines no shared atomic;
   3. kernels  each scheduling kernel against its plain PyTorch version on
               the card, bit for bit (``torch.equal`` on every output): the
               map kernels at the flat path's shape and at a wide one, over
@@ -42,17 +45,28 @@ raises, so the script exits non-zero and prints no result line:
               ``bf16_attention_bound`` (its two bf16 roundings of the
               output and the rounding of p), and bf16 flash attention
               again with q and k at 2.5 N(0, 1), where the softmax is
-              peaked and outputs are O(|v|);
-  5. times    per kernel at its path's shape: device time per launch
+              peaked and outputs are O(|v|). The SSD scan runs on the
+              route its shape picks (one launch on that route's count);
+              on the tensor cores a bf16 y is held as
+              ``ssd_bf16_on_tensor_cores`` says (element by element within
+              two bf16 roundings of the plain version's, and 2e-2 where
+              |y| < 4; the bf16 rounding of its float32 instance bit for
+              bit, which is within 2e-4), and bf16 B and C must give the
+              bits of their float32 values;
+  5. times    per kernel at its path's shapes: device time per launch
               (``torch.profiler``), the plain version's device time per
               call, the eager time per call by CUDA events with the host's
               work included, the least time the card could take for the
               same bytes and operations, and for the attention kernels
               one ``scaled_dot_product_attention`` call on the same inputs
               (timed here, never called by the port), each kernel's share
-              of its bound and its ratio to that call; then flash
-              attention's float32 instantiation at the same shape, and
-              decode attention with 2, 4 and 8 query heads per kv head;
+              of its bound and its ratio to that call. map_decide and
+              evict_stats at the flat, paper_x8 and tiered_x4 shapes,
+              balance_scan at the last two, the SSD scan with bf16 B and C
+              as the serve path gives them (and with float32 B and C);
+              then flash attention's float32 instantiation at the same
+              shape, and decode attention with 2, 4 and 8 query heads per
+              kv head;
   6. profile  where one batched event's time goes: the first 64
               iterations of the flat FELARE and phase1 ELARE sweeps and of
               the federated FELARE + fair_spill sweep on paper_x2 and
@@ -63,8 +77,9 @@ raises, so the script exits non-zero and prints no result line:
               requests of 1024 prompt tokens (numpy seed 0) for 64 greedy
               tokens through ``make_serve_steps``: one prefill, then 64
               decode steps. The launch counts, zeroed just before, must be
-              9 flash_attention and 54 ssd_scan per prefill and 9
-              decode_attention per decode step. Prefill ms, ms per decode
+              9 flash_attention and 54 ssd_scan on the tensor cores
+              (ssd_scan_tc) per prefill and 9 decode_attention per decode
+              step. Prefill ms, ms per decode
               step and tokens/s from CUDA events after a warm-up call,
               peak memory, then (``serve_profile``) where one prefill and
               one decode step spend their device time (torch.profiler);
@@ -98,7 +113,9 @@ raises, so the script exits non-zero and prints no result line:
               1000 tasks) gives the same counters on the CPU.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, one
-``{"kernels": [...]}`` line, and the last line
+``{"kernels": [...]}`` line (a row with ``by_shape`` gives each path
+shape's times, bound, launches and launches x (ms - bound)), and the last
+line
 ``{"ok": true, "device": {...}}``. With ``--kernels-only`` the script
 stops after phase 5 and prints neither line.
 """
@@ -119,6 +136,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
+TF32_OPS_PER_S = 495e12     # H100 SXM dense TF32 tensor cores
 MAIN_SHAPE = dict(B=150, N=2000, M=4, S=4)
 WIDE_SHAPE = dict(B=8, N=10_000, M=512, S=8)
 RATES = (2.0, 3.0, 4.0, 6.0, 8.0)
@@ -207,9 +225,15 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+SASS_OPS = (("HGMMA", r"\bHGMMA\."), ("HMMA", r"\bHMMA\."),
+            ("LDG.E.128", r"\bLDG\.E\.128\b"), ("ATOMS", r"\bATOMS\."))
+
+
 def sass_counts(build) -> dict:
-    """Per library, how many tensor-core (HGMMA: wgmma, HMMA: mma.sync)
-    and 128-bit global-load instructions its SASS holds (cuobjdump)."""
+    """Per library and per kernel function, how many tensor-core (HGMMA:
+    wgmma, HMMA: mma.sync), 128-bit global-load and shared-memory atomic
+    instructions its SASS holds (cuobjdump): ``{lib: {"total": counts,
+    "functions": {mangled name: counts}}}``."""
     import re
 
     tool = pathlib.Path(build.nvcc()).parent / "cuobjdump"
@@ -218,10 +242,49 @@ def sass_counts(build) -> dict:
         text = subprocess.run(
             [str(tool), "-sass", str(build.lib_path(name))],
             capture_output=True, text=True, check=True, timeout=300).stdout
-        out[name] = {op: len(re.findall(pat, text)) for op, pat in (
-            ("HGMMA", r"\bHGMMA\."), ("HMMA", r"\bHMMA\."),
-            ("LDG.E.128", r"\bLDG\.E\.128\b"))}
+        funcs = {}
+        for part in re.split(r"\n\s*Function : ", text)[1:]:
+            fname, body = part.split("\n", 1)
+            funcs[fname.strip()] = {op: len(re.findall(pat, body))
+                                    for op, pat in SASS_OPS}
+        out[name] = {"total": {op: sum(f[op] for f in funcs.values())
+                               for op, _ in SASS_OPS},
+                     "functions": funcs}
     return out
+
+
+def ptxas_by_function(log: str) -> dict:
+    """Registers, stack frame and spill-store bytes per kernel function,
+    from ``ptxas -v``'s report."""
+    import re
+
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", ln)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {"registers": 0, "stack": 0, "spill": 0})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      ln)
+        if m:
+            out[fn]["stack"], out[fn]["spill"] = int(m[1]), int(m[2])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[fn]["registers"] = int(m[1])
+    return out
+
+
+def map_decide_slots(mangled: str):
+    """The slot bound MS (4th template argument) of a ``map_decide_kernel``
+    instance, None for any other function."""
+    import re
+
+    m = re.search(r"map_decide_kernelILi\d+ELi\d+ELi\d+ELi(\d+)E", mangled)
+    return None if m is None else int(m.group(1))
 
 
 def nvidia_smi() -> str:
@@ -471,6 +534,61 @@ def ssd_inputs(gen, B, L, H, P, N, dtype):
             card_normal(gen, (B, L, N), torch.float32))
 
 
+def bf16_ssd_bound(want):
+    """Per element, how far the tensor-core scan's bf16 y may lie from the
+    plain version's bf16 y ``want``: each is the bf16 rounding of a float32
+    y (at most 2^-8 of it away), and the two float32 ys lie within the
+    float32 tolerance of each other, so |got - want| <= 2^-7 |want| /
+    (1 - 2^-8) + (1 + 2^-8) 2e-4. Where |want| < 4 one bf16 step is at most
+    2^-6, and SSD_TOL's 2e-2 holds as well."""
+    a = want.float().abs()
+    return (2.0 ** -7 / (1 - 2.0 ** -8) * a
+            + (1 + 2.0 ** -8) * SSD_TOL["float32"])
+
+
+def ssd_bf16_on_tensor_cores(ssm_scan, args, chunk, got, want, report,
+                             case) -> tuple:
+    """How a bf16 x on the tensor-core route is held. The bf16 y against
+    the plain version's bf16 y element by element: within
+    ``bf16_ssd_bound`` everywhere and within SSD_TOL's 2e-2 wherever |y| <
+    4 (further out a sum taken in another order lands on the neighbouring
+    bf16 value now and then, one step of 2^-5 and more). The bf16 instance
+    is the float32 instance on the same values (a bf16 x is exact in TF32)
+    plus one round-to-nearest of y, so its y must also be exactly the bf16
+    rounding of the float32 instance's y, and that float32 y is held within
+    the float32 tolerance of the plain version's float32 y on the same
+    values. The bf16 outputs that differ are reported. Returns the (got,
+    want) pair of float32 y to hold."""
+    import torch
+
+    wide = (args[0].float(),) + tuple(args[1:])
+    got32 = ssm_scan.ssm_scan(*wide, chunk=chunk)[0]
+    want32 = ssm_scan.ssd_scan_plain(*wide, chunk=chunk)[0]
+    torch.cuda.synchronize()
+    require(torch.equal(got[0], got32.to(torch.bfloat16)),
+            f"ssd_scan {case}: bf16 y is not the rounding of the float32 y")
+    differ = got[0] != want[0]
+    diff = (got[0].float() - want[0].float()).abs()
+    near = want[0].float().abs() < 4
+    ratio = float((diff / bf16_ssd_bound(want[0])).max())
+    near_err = float(torch.where(near, diff, 0.0).max())
+    require(ratio <= 1.0 and near_err <= SSD_TOL["bfloat16"],
+            f"ssd_scan {case}: bf16 y at {ratio} of its per-element bound, "
+            f"{near_err} from the plain version where |y| < 4 (tolerance "
+            f"{SSD_TOL['bfloat16']})")
+    report.append({"case": list(case[:6]),
+                   "bf16_y_differing_from_plain": int(differ.sum()),
+                   "of": int(differ.numel()),
+                   "max_abs_diff": float(diff.max()),
+                   "max_abs_diff_where_abs_y_below_4": near_err,
+                   "max_share_of_bf16_bound": ratio,
+                   "max_abs_y_where_differing": float(
+                       (want[0].float().abs() * differ).max()),
+                   "f32_y_max_abs_err": float(
+                       (got32 - want32).abs().max())})
+    return (got32,), (want32,)
+
+
 def check_model_kernels(device, errs: dict) -> None:
     """The three model kernels against their plain versions on the card,
     float32 and bfloat16, within the stated tolerances."""
@@ -505,6 +623,7 @@ def check_model_kernels(device, errs: dict) -> None:
         worst = {k: 0.0 for k in ("flash_attention", "decode_attention",
                                   "ssd_scan")}
         worst_ratio = {}
+        routes, ssd_bf16_outputs = {}, []
         for (B, Sq, Sk, H, Hkv, hd, causal, off, lens), qk_scale in \
                 itertools.product(FLASH_CASES, QK_SCALES[dname]):
             q = card_normal(gen, (B, Sq, H, hd), dt, qk_scale)
@@ -560,12 +679,37 @@ def check_model_kernels(device, errs: dict) -> None:
                 attention_bound(plain, q, k, v)))
         for B, L, H, P, N, chunk in SSD_CASES:
             args = ssd_inputs(gen, B, L, H, P, N, dt)
+            route = "ssd_scan_tc" if ssm_scan.tensor_core_route(
+                min(chunk, L), N, P) else "ssd_scan"
+            before = dict(ssm_scan.LAUNCHES)
             got = ssm_scan.ssm_scan(*args, chunk=chunk)
             want = ssm_scan.ssd_scan_plain(*args, chunk=chunk)
-            case = (B, L, H, P, N, chunk, dname)
-            worst["ssd_scan"] = max(worst["ssd_scan"], record(
-                "ssd_scan", got[:1], want[:1], SSD_TOL[dname], case))
+            case = (B, L, H, P, N, chunk, dname, route)
+            require({k: v - before[k] for k, v in ssm_scan.LAUNCHES.items()}
+                    == {k: int(k == route) for k in before},
+                    f"ssd_scan {case}: not one launch on its route")
+            if route == "ssd_scan_tc" and dt == torch.bfloat16:
+                worst["ssd_scan"] = max(worst["ssd_scan"], record(
+                    "ssd_scan", *ssd_bf16_on_tensor_cores(
+                        ssm_scan, args, chunk, got, want, ssd_bf16_outputs,
+                        case), SSD_TOL["float32"], case))
+            else:
+                worst["ssd_scan"] = max(worst["ssd_scan"], record(
+                    "ssd_scan", got[:1], want[:1], SSD_TOL[dname], case))
             record("ssd_scan", got[1:], want[1:], SSD_TOL["float32"], case)
+            routes[f"{B}x{L}x{H}x{P} N{N} Q{chunk}"] = route
+        # The serve path passes B and C in bf16, exact in TF32: the kernel
+        # then leaves out the products of their zero lo parts, which must
+        # change no bit against the same values given as float32.
+        x, dts_, A, Bm, Cm = ssd_inputs(gen, *SSD_CASES[-1][:5], dt)
+        Bh, Ch = Bm.bfloat16(), Cm.bfloat16()
+        got = ssm_scan.ssm_scan(x, dts_, A, Bh, Ch, chunk=SSD_CASES[-1][5])
+        same = ssm_scan.ssm_scan(x, dts_, A, Bh.float(), Ch.float(),
+                                 chunk=SSD_CASES[-1][5])
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, same)),
+                f"ssd_scan {dname}: bf16 B and C differ from their float32 "
+                f"values")
         emit("model_kernels", dtype=dname, max_abs_err=worst,
              tolerance={"attention": ATTN_TOL[dname],
                         "ssd_scan": SSD_TOL[dname]},
@@ -574,7 +718,10 @@ def check_model_kernels(device, errs: dict) -> None:
                     * len(QK_SCALES[dname]),
                     "decode_attention": len(DECODE_CASES)
                     + len(DECODE_SPLIT_CASES),
-                    "ssd_scan": len(SSD_CASES)})
+                    "ssd_scan": len(SSD_CASES)},
+             ssd_routes=routes,
+             ssd_tensor_core_bf16_outputs=ssd_bf16_outputs or None,
+             ssd_bf16_bc_bit_for_bit_with_float32_bc=True)
 
 
 # --------------------------------------------------------------------------
@@ -734,7 +881,7 @@ def run_federated_path(device, reps: int) -> dict:
     traces = {x8[0]: stack(*x8), tiered[0]: stack(*tiered)}
     runs = ((x8, "FELARE", "fair_spill"), (x8, "ELARE", "least_queued"),
             (tiered, "FELARE", "least_queued"))
-    total, fused = {}, {}
+    total, fused, by_system = {}, {}, {}
     for cfg, h, d in runs:
         label = f"{cfg[0]} {h} {d}"
         reset_counts()
@@ -750,8 +897,10 @@ def run_federated_path(device, reps: int) -> dict:
         for k, v in expect.items():
             require(counts[k] == v,
                     f"{label}: {k}: {counts[k]} launches, {v} expected")
+        system_counts = by_system.setdefault(cfg[0], {})
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
+            system_counts[k] = system_counts.get(k, 0) + v
         fused[label] = (cfg, h, d, res)
 
     # -- parity: plain path on the card, same traces ----------------------
@@ -779,7 +928,7 @@ def run_federated_path(device, reps: int) -> dict:
                            "tasks": CPU_SUBSET_TASKS},
          plain_seconds=plain_seconds,
          cpu_seconds=cpu.run_info["FELARE"]["seconds"])
-    return total
+    return total, by_system
 
 
 # --------------------------------------------------------------------------
@@ -878,8 +1027,9 @@ def run_serve_path(device) -> tuple:
     require(cache["len"].tolist() == [SERVE_MAX_SEQ] * SERVE_BATCH,
             f"serve: cache length {cache['len'].tolist()}")
     n_inv = cfg.n_layers // cfg.attn_every
-    expect = {"flash_attention": n_inv, "ssd_scan": cfg.n_layers,
-              "decode_attention": n_inv * SERVE_NEW}
+    # the serve shape's scan runs on the tensor cores, every layer
+    expect = {"flash_attention": n_inv, "ssd_scan_tc": cfg.n_layers,
+              "ssd_scan": 0, "decode_attention": n_inv * SERVE_NEW}
     emit("serve", arch=SERVE_ARCH, params=n_params,
          weight_bytes=weight_bytes, init_seconds=init_s,
          batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
@@ -1162,129 +1312,221 @@ def time_ms(fn, iters: int) -> float:
 def device_ms(fn, iters: int) -> float:
     """Device time per call: the summed time of every kernel ``fn``
     launches, from ``torch.profiler`` over ``iters`` calls after warm-up
-    (host work between launches does not count)."""
+    (host work between launches does not count). torch.profiler was seen
+    to drop device records late in a long process, so each attempt first
+    counts the records of 3 calls, and a window of ``iters`` calls must
+    hold exactly that count per call; an attempt whose counts disagree is
+    made again, up to three times in all, and then the run fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def window(n):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        return (sum(e.count for e in events),
+                sum(e.self_device_time_total for e in events))
 
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.self_device_time_total > 0)
-    require(busy_us > 0, "the profiler saw no device time")
-    return busy_us * 1e-3 / iters
+    seen = []
+    for _ in range(3):
+        per3, _ = window(3)
+        count, us = window(iters)
+        seen.append((per3, count))
+        if per3 > 0 and per3 % 3 == 0 and count == per3 // 3 * iters:
+            return us * 1e-3 / iters
+    raise AssertionError(
+        f"torch.profiler lost device records three times in {iters} calls "
+        f"of {getattr(fn, '__name__', 'a lambda')} (records in 3 calls, in "
+        f"{iters} calls: {seen})")
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def map_path_inputs(path: str, device) -> dict:
+    """Map-kernel inputs at the shape each path gives the kernels: the flat
+    sweep's 150 replicates; paper_x8's block fold, 150 x 8 rows of its 4
+    machines each with its own EET table; tiered_x4's masked fold, 2 rates
+    x 10 replicates x 4 sites, each row all 20 machines."""
+    if path == "flat":
+        return kernel_inputs(**MAIN_SHAPE, seed=5, device=device)
+    if path == "paper_x8":
+        sites = tuple(f for f in range(BLOCK_ROWS["F"])
+                      for _ in range(BLOCK_ROWS["m"]))
+        return per_row_inputs(BLOCK_ROWS["B"], BLOCK_ROWS["N"],
+                              BLOCK_ROWS["S"], sites, seed=5, device=device,
+                              block=True)
+    return per_row_inputs(len(TIER_RATES) * TIER_REPS, TIER_TASKS,
+                          MASKED_ROWS["S"], MASKED_ROWS["sites"], seed=5,
+                          device=device, block=False)
+
+
+def timed_row(name, kern, plain, moved, ops, rate=None, iters=100,
+              plain_iters=20) -> dict:
+    """Device times of a kernel and its plain version, eager times, and the
+    bound from the bytes moved and operations done (float32 CUDA cores
+    unless ``rate`` says otherwise)."""
+    rate = rate or F32_OPS_PER_S
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return {"ms": device_ms(kern, iters), "plain_ms": device_ms(plain,
+                                                                plain_iters),
+            "eager_ms": time_ms(kern, 2 * iters),
+            "eager_plain_ms": time_ms(plain, plain_iters),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": moved, "operations": ops}
+
+
 def time_kernels(device, errs: dict) -> list:
+    """The scheduling kernels at the shapes the paths give them: map_decide
+    and evict_stats at the flat, paper_x8 and tiered_x4 shapes, phase1_map
+    at the flat one (only that path runs it), balance_scan at paper_x8's
+    and tiered_x4's. Each row's top-level numbers are those of its first
+    shape; ``by_shape`` holds every shape's."""
     import torch
 
     from repro_torch.kernels import map_fused, phase1_map
 
-    x = kernel_inputs(**MAIN_SHAPE, seed=5, device=device)
-    B, N, M = MAIN_SHAPE["B"], MAIN_SHAPE["N"], MAIN_SHAPE["M"]
     kinds = dict(nominator="min_energy_feasible", phase2_key="value",
                  drop_rule="stale_hopeless")          # FELARE's kinds
-    md_args = map_decide_args(x) + (x["suffered"],)
-    es_args = evict_stats_args(x)
-    p1_args = phase1_args(x)
-    table = {
-        # name: (kernel call, plain call, bytes moved, float operations)
-        "map_decide": (
-            lambda: map_fused.map_decide(*md_args, **kinds),
-            lambda: map_fused.map_decide_plain(*md_args, **kinds),
-            nbytes(*md_args, *map_fused.map_decide(*md_args, **kinds)),
-            B * N * (4 * M + 2)),
-        "evict_stats": (
-            lambda: map_fused.evict_stats(*es_args),
-            lambda: map_fused.evict_stats_plain(*es_args),
-            nbytes(*es_args, *map_fused.evict_stats(*es_args)),
-            B * N * 3 * M),
-        "phase1_map": (
-            lambda: phase1_map.phase1_map(*p1_args),
-            lambda: phase1_map.phase1_map_plain(*p1_args),
-            nbytes(*p1_args, *phase1_map.phase1_map(*p1_args)),
-            B * N * 3 * M),
-    }
+    by_shape = {"map_decide": {}, "evict_stats": {}, "phase1_map": {}}
+    for path in ("flat", "paper_x8", "tiered_x4"):
+        x = map_path_inputs(path, device)
+        B, N = x["deadline"].shape
+        M = x["eet"].shape[-1]
+        md_args = map_decide_args(x) + (x["suffered"],)
+        es_args = evict_stats_args(x)
+        table = {
+            # name: (kernel call, plain call, bytes moved, float operations)
+            "map_decide": (
+                lambda: map_fused.map_decide(*md_args, **kinds),
+                lambda: map_fused.map_decide_plain(*md_args, **kinds),
+                nbytes(*md_args, *map_fused.map_decide(*md_args, **kinds)),
+                B * N * (4 * M + 2)),
+            "evict_stats": (
+                lambda: map_fused.evict_stats(*es_args),
+                lambda: map_fused.evict_stats_plain(*es_args),
+                nbytes(*es_args, *map_fused.evict_stats(*es_args)),
+                B * N * 3 * M),
+        }
+        if path == "flat":
+            p1_args = phase1_args(x)
+            table["phase1_map"] = (
+                lambda: phase1_map.phase1_map(*p1_args),
+                lambda: phase1_map.phase1_map_plain(*p1_args),
+                nbytes(*p1_args, *phase1_map.phase1_map(*p1_args)),
+                B * N * 3 * M)
+        for name, (kern, plain, moved, ops) in table.items():
+            r = timed_row(name, kern, plain, moved, ops)
+            by_shape[name][path] = {"rows": B, "N": N, "M": M, **r}
+            emit("times", kernel=name, path=path, rows=B, N=N, M=M, **r)
+    by_shape["balance_scan"] = time_balance_scan(device)
     rows = []
-    for name, (kern, plain, moved, ops) in table.items():
-        t_bytes = moved / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_OPS_PER_S * 1e3
+    for name, shapes in by_shape.items():
+        first = next(iter(shapes.values()))
         rows.append({
             "name": name, "route": "cuda",
             "source": KERNEL_SOURCES[name][0],
             "replaces": KERNEL_SOURCES[name][1],
             "max_abs_err": errs[name],
-            "ms": device_ms(kern, 100), "plain_ms": device_ms(plain, 20),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by")},
             "library_ms": None,
+            "by_shape": {path: {k: v[k] for k in ("rows", "N", "ms",
+                                                  "plain_ms", "bound_ms",
+                                                  "bound_by")}
+                         for path, v in shapes.items()},
         })
-        emit("times", kernel=name, bytes=moved, operations=ops,
-             eager_ms=time_ms(kern, 200), eager_plain_ms=time_ms(plain, 50),
-             **{k: rows[-1][k] for k in ("ms", "plain_ms", "bound_ms")})
-    rows.append(time_balance_scan(device, errs))
     torch.cuda.synchronize()
     return rows
 
 
-def time_balance_scan(device, errs: dict) -> dict:
-    """``balance_scan`` at the federated path's shape (B = 150 replicates,
-    N = 4000 tasks, F = 8 sites) on the data that path gives it: one
-    admission per replicate per event. Times per call by CUDA events after
-    warm-up (``ms``, ``plain_ms``), device time by ``torch.profiler``, and
-    the same with every task new (the serial walk's longest case)."""
+def time_balance_scan(device) -> dict:
+    """``balance_scan`` at the federated paths' shapes (paper_x8: 150
+    replicates of 4000 tasks over 8 sites; tiered_x4: 20 replicates of 2000
+    tasks over 4 sites) on the data those paths give it: one admission per
+    replicate per event. Times by CUDA events after warm-up (``ms``,
+    ``plain_ms``), device time by ``torch.profiler``, and the same with
+    every task new (the serial walk's longest case)."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import map_fused
 
-    shape = BALANCE_SHAPES[0]
-    B, N, F = shape["B"], shape["N"], shape["F"]
-    load0, _, target, home = balance_inputs(**shape, density=0.0,
-                                            loads="mixed", seed=3,
-                                            device=device)
-    load0 = load0 % 1_000_000                          # no dead site
-    one = np.zeros((B, N), bool)
-    one[np.arange(B), np.random.default_rng(4).integers(0, N, B)] = True
-    fresh = torch.as_tensor(one, device=device)
-    args = (load0, fresh, target, home)
-    every = (load0, torch.ones_like(fresh), target, home)
+    out = {}
+    for path, shape in (("paper_x8", BALANCE_SHAPES[0]),
+                        ("tiered_x4", dict(B=len(TIER_RATES) * TIER_REPS,
+                                           N=TIER_TASKS, F=4))):
+        B, N, F = shape["B"], shape["N"], shape["F"]
+        load0, _, target, home = balance_inputs(**shape, density=0.0,
+                                                loads="mixed", seed=3,
+                                                device=device)
+        load0 = load0 % 1_000_000                      # no dead site
+        one = np.zeros((B, N), bool)
+        one[np.arange(B), np.random.default_rng(4).integers(0, N, B)] = True
+        fresh = torch.as_tensor(one, device=device)
+        args = (load0, fresh, target, home)
+        every = (load0, torch.ones_like(fresh), target, home)
 
-    def kern(x=args):
-        return map_fused.balance_scan(*x)
+        def kern(x=args):
+            return map_fused.balance_scan(*x)
 
-    def plain():
-        return map_fused.balance_scan_plain(*args, max_new=1)
+        def plain(x=args):
+            return map_fused.balance_scan_plain(*x, max_new=1)
 
-    moved = nbytes(*args, kern())
-    ops = B * N + int(fresh.sum()) * F                  # selects + argmins
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    row = {"name": "balance_scan", "route": "cuda",
-           "source": KERNEL_SOURCES["balance_scan"][0],
-           "replaces": KERNEL_SOURCES["balance_scan"][1],
-           "max_abs_err": errs["balance_scan"],
-           "ms": time_ms(kern, 200), "plain_ms": time_ms(plain, 50),
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": None}
-    emit("times", kernel="balance_scan", bytes=moved, operations=ops,
-         new_tasks=int(fresh.sum()), device_ms=device_ms(kern, 100),
-         plain_device_ms=device_ms(plain, 20),
-         ms_all_new=time_ms(lambda: kern(every), 20),
-         device_ms_all_new=device_ms(lambda: kern(every), 20),
-         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms")})
-    return row
+        moved = nbytes(*args, kern())
+        ops = B * N + int(fresh.sum()) * F              # selects + argmins
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        r = {"rows": B, "N": N, "F": F,
+             "ms": time_ms(kern, 200), "plain_ms": time_ms(plain, 50),
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "bytes": moved, "operations": ops,
+             "new_tasks": int(fresh.sum()),
+             "device_ms": device_ms(kern, 100),
+             "plain_device_ms": device_ms(plain, 20),
+             "ms_all_new": time_ms(lambda: kern(every), 20),
+             "device_ms_all_new": device_ms(lambda: kern(every), 20)}
+        out[path] = r
+        emit("times", kernel="balance_scan", path=path, **r)
+    return out
+
+
+def ssd_products(B, H, L, P, N, Q, bf16_bc: bool) -> tuple:
+    """The SSD scan's products and the least time the tensor cores take
+    for them at float32 accuracy. Per (b, h) and chunk: C.B^T and W x over
+    the causal triangle (Q (Q + 1) / 2 pairs), C.S and the state update
+    2 Q N P operations each. A float32 operand is split into two TF32
+    parts, so a product of two float32 operands takes three TF32 passes
+    and one whose other operand is exact in TF32 two: x is bf16, so W x
+    and the state update (B dt exp(cl_last - cl) times x) take two. With
+    B and C in bf16, C.B^T is exact on the bf16 tensor cores and C.S takes
+    two passes; with them in float32, both take three. Returns (operations,
+    ms, rate named)."""
+    n = B * H * (L // Q)
+    tri = Q * (Q + 1) // 2
+    cb, wx = 2 * n * tri * N, 2 * n * tri * P
+    cs = st = 2 * n * Q * N * P
+    if bf16_bc:
+        s = cb / BF16_OPS_PER_S + 2 * (wx + cs + st) / TF32_OPS_PER_S
+        rate = ("C.B^T on the bf16 tensor cores (989 TFLOP/s), C.S, W x and "
+                "the state update in 2 TF32 passes (495 TFLOP/s each)")
+    else:
+        s = (3 * (cb + cs) + 2 * (wx + st)) / TF32_OPS_PER_S
+        rate = ("C.B^T and C.S in 3 TF32 passes, W x and the state update "
+                "in 2 (495 TFLOP/s each)")
+    return cb + wx + cs + st, s * 1e3, rate
 
 
 def time_model_kernels(device, errs: dict) -> list:
@@ -1312,18 +1554,26 @@ def time_model_kernels(device, errs: dict) -> list:
     kv_len = torch.full((B,), kv, dtype=torch.int32, device=device)
     q1t, ckt, cvt = (t.transpose(1, 2).contiguous() for t in (q1, ck, cv))
     mask = (torch.arange(Sk, device=device) < kv_len[:, None])[:, None, None]
+    # the serve path's scan: bf16 x, B and C (the conv output), float32 dt
     ssd = ssd_inputs(gen, B, S, 80, 64, 64, bf16)
-    Q, nc = 128, S // 128
+    ssd_f32_bc = ssd
+    ssd = ssd[:3] + (ssd[3].bfloat16(), ssd[4].bfloat16())
+    Q = 128
+    flash_ops = 4 * B * H * hd * S * (S + 1) // 2
+    decode_ops = 4 * B * H * kv * hd
+    ssd_ops, ssd_ops_ms, ssd_rate = ssd_products(B, 80, S, 64, 64, Q, True)
     table = {
-        # name: (kernel, plain, library, bytes, operations, rate, rate name)
+        # name: (kernel, plain, library, bytes, operations, their least
+        # time in ms, the rates that time assumes)
         "flash_attention": (
             lambda: flash_attention.flash_attention(q, k, v, causal=True),
             lambda: flash_attention.flash_attention_plain(q, k, v,
                                                           causal=True),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                    enable_gqa=True),
-            nbytes(q, k, v, q), 4 * B * H * hd * S * (S + 1) // 2,
-            BF16_OPS_PER_S, "bf16 tensor cores, 989 TFLOP/s"),
+            nbytes(q, k, v, q), flash_ops,
+            flash_ops / BF16_OPS_PER_S * 1e3,
+            "bf16 tensor cores, 989 TFLOP/s"),
         "decode_attention": (
             lambda: decode_attention.decode_attention(q1, ck, cv, kv_len),
             lambda: decode_attention.decode_attention_plain(q1, ck, cv,
@@ -1332,21 +1582,19 @@ def time_model_kernels(device, errs: dict) -> list:
                                                    attn_mask=mask,
                                                    enable_gqa=True),
             nbytes(q1, q1, kv_len) + 2 * B * ck.shape[2] * kv * hd * 2,
-            4 * B * H * kv * hd,
-            BF16_OPS_PER_S, "bf16 tensor cores, 989 TFLOP/s"),
+            decode_ops, decode_ops / BF16_OPS_PER_S * 1e3,
+            "bf16 tensor cores, 989 TFLOP/s"),
         "ssd_scan": (
             lambda: ssm_scan.ssm_scan(*ssd, chunk=Q),
             lambda: ssm_scan.ssd_scan_plain(*ssd, chunk=Q),
             None,
             nbytes(*ssd, ssd[0]) + B * 80 * 64 * 64 * 4,
-            2 * B * 80 * nc * (Q * (Q + 1) // 2 * (64 + 64) + 2 * Q * 64 * 64),
-            F32_OPS_PER_S, "float32 CUDA cores, 67 TFLOP/s"),
+            ssd_ops, ssd_ops_ms, ssd_rate),
     }
     rows = []
-    for name, (kern, plain, lib, moved, ops, rate, rate_name) in \
+    for name, (kern, plain, lib, moved, ops, t_ops, rate_name) in \
             table.items():
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / rate * 1e3
         rows.append({
             "name": name, "route": "cuda",
             "source": KERNEL_SOURCES[name][0],
@@ -1358,6 +1606,12 @@ def time_model_kernels(device, errs: dict) -> list:
             "library_ms": None if lib is None else device_ms(lib, 20),
         })
         row = rows[-1]
+        if name == "ssd_scan":
+            # both routes count as this kernel's launches; the serve shape
+            # takes the tensor cores
+            row["counters"] = ["ssd_scan_tc", "ssd_scan"]
+            row["bound_ms_cuda_cores"] = max(t_bytes,
+                                             ops / F32_OPS_PER_S * 1e3)
         emit("times", kernel=name, bytes=moved, operations=ops,
              rate=rate_name, eager_ms=time_ms(kern, 20),
              eager_plain_ms=time_ms(plain, 5),
@@ -1368,17 +1622,28 @@ def time_model_kernels(device, errs: dict) -> list:
                        "TB/s": moved / row["ms"] * 1e-9},
              **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                     "library_ms")})
+    # The scan with B and C given in float32 (C.B^T and C.S in three TF32
+    # passes), at the same shape, against its own bound.
+    ops, t_ops, rate_name = ssd_products(B, 80, S, 64, 64, Q, False)
+    t_bytes = (nbytes(*ssd_f32_bc, ssd_f32_bc[0]) + B * 80 * 64 * 64 * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    ms = device_ms(lambda: ssm_scan.ssm_scan(*ssd_f32_bc, chunk=Q), 20)
+    emit("times", kernel="ssd_scan", bc_dtype="float32", ms=ms,
+         plain_ms=device_ms(lambda: ssm_scan.ssd_scan_plain(*ssd_f32_bc,
+                                                           chunk=Q), 5),
+         bound_ms=max(t_bytes, t_ops),
+         bound_by="bytes" if t_bytes >= t_ops else "operations",
+         rate=rate_name, share_of_bound=max(t_bytes, t_ops) / ms)
     # The float32 instantiation of flash attention (the CUDA cores) at the
     # same shape, against the float32 CUDA cores' rate.
     qf, kf, vf = q.float(), k.float(), v.float()
-    ops = 4 * B * H * hd * S * (S + 1) // 2
     f32_ms = device_ms(lambda: flash_attention.flash_attention(
         qf, kf, vf, causal=True), 5)
     emit("times", kernel="flash_attention", dtype="float32", ms=f32_ms,
          eager_ms=time_ms(lambda: flash_attention.flash_attention(
              qf, kf, vf, causal=True), 5),
          bound_ms=max(nbytes(qf, kf, vf, qf) / HBM_BYTES_PER_S,
-                      ops / F32_OPS_PER_S) * 1e3,
+                      flash_ops / F32_OPS_PER_S) * 1e3,
          rate="float32 CUDA cores, 67 TFLOP/s",
          library_ms=device_ms(lambda: F.scaled_dot_product_attention(
              qt.float(), kt.float(), vt.float(), is_causal=True), 5))
@@ -1447,14 +1712,38 @@ def main(argv=None) -> int:
                       if "bytes spill stores" in ln] or [0])
               for k, v in logs.items()}
     sass = sass_counts(build)
+    ptxas_ssd = {f: r for f, r in ptxas_by_function(
+        logs["ssm_scan"]["log"]).items() if "ssd_scan_tc_kernel" in f}
+    ssd_tc = {f: c for f, c in sass["ssm_scan"]["functions"].items()
+              if "ssd_scan_tc_kernel" in f}
+    map_atoms = {}
+    for f, c in sass["map_fused"]["functions"].items():
+        ms = map_decide_slots(f)
+        if ms is not None:
+            map_atoms.setdefault(f"MS={ms}", []).append(c["ATOMS"])
     emit("build", wall_seconds=time.perf_counter() - t_build,
          seconds={k: v["seconds"] for k, v in logs.items()},
          registers_per_thread={k: [r[0], r[-1]] for k, r in regs.items()},
-         max_spill_store_bytes=spills, sass=sass)
-    require(sass["flash_attention"]["HGMMA"] > 0,
+         max_spill_store_bytes=spills,
+         sass={k: v["total"] for k, v in sass.items()},
+         ssd_scan_tc={"sass": ssd_tc, "ptxas": ptxas_ssd},
+         map_decide_atoms_by_slots={k: [min(v), max(v)]
+                                    for k, v in map_atoms.items()})
+    require(sass["flash_attention"]["total"]["HGMMA"] > 0,
             "flash_attention: no wgmma (HGMMA) in its SASS")
-    require(sass["decode_attention"]["LDG.E.128"] > 0,
+    require(sass["decode_attention"]["total"]["LDG.E.128"] > 0,
             "decode_attention: no 128-bit global loads in its SASS")
+    # four tensor-core instances: x float32 or bf16, B and C exact in TF32
+    # or not
+    require(len(ssd_tc) == 4 and all(c["HMMA"] > 0 for c in ssd_tc.values()),
+            f"ssd_scan: a tensor-core instance without HMMA: {ssd_tc}")
+    require(len(ptxas_ssd) == 4
+            and all(r["spill"] == 0 for r in ptxas_ssd.values()),
+            f"ssd_scan: the tensor-core instances spill: {ptxas_ssd}")
+    require(map_atoms.get("MS=4") and map_atoms.get("MS=8")
+            and max(map_atoms["MS=4"] + map_atoms["MS=8"]) == 0
+            and min(map_atoms["MS=0"]) > 0,
+            f"map_decide: shared atomics where M <= 8: {map_atoms}")
 
     errs = check_kernels(device)
     check_federation_kernels(device, errs)
@@ -1478,12 +1767,19 @@ def main(argv=None) -> int:
         emit("cut", fed_reps=args.fed_reps,
              note="federated path run below paper scale (30 reps)")
     flat = run_main_path(device, args.reps, args.tasks)
-    fed = run_federated_path(device, args.fed_reps)
+    fed, fed_by_system = run_federated_path(device, args.fed_reps)
     paths = {"flat": flat, "federated": fed, "serve": serve}
+    shape_counts = {"flat": flat, **fed_by_system}
     for row in rows:
-        row["launches_by_path"] = {path: p.get(row["name"], 0)
+        counters = row.get("counters", [row["name"]])
+        row["launches_by_path"] = {path: sum(p.get(c, 0) for c in counters)
                                    for path, p in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+        for path, shape in row.get("by_shape", {}).items():
+            shape["launches"] = shape_counts[path].get(row["name"], 0)
+            # what this shape's launches lose against the bound per run
+            shape["gap_ms_per_run"] = shape["launches"] * (
+                shape["ms"] - shape["bound_ms"])
     emit("done", seconds=time.perf_counter() - t_start)
 
     print(smi)

@@ -89,17 +89,12 @@ def _check_kinds(nominator, phase2_key, drop_rule):
 # --------------------------------------------------------------------------
 # Plain versions
 # --------------------------------------------------------------------------
-def map_decide_plain(now, start, p_dyn, qfree, eet, deadline, pending,
-                     task_type, suffered_task, *, nominator: str,
-                     phase2_key: str, drop_rule: str):
-    """What the ``map_decide`` kernel computes, in PyTorch ops.
-
-    now (B,) f32; start (B, M) f32; p_dyn (M,) or (B, M) f32; qfree (B, M)
-    bool; eet (S, M) or (B, S, M) f32; deadline (B, N) f32; pending,
-    suffered_task (B, N) bool; task_type (B, N) int64. Returns ``(drop
-    (B, N) bool, hi_key (B, M) f32, hi_task (B, M) int64, lo_key,
-    lo_task)``.
-    """
+def map_decide_tasks(now, start, p_dyn, qfree, eet, deadline, pending,
+                     task_type, *, nominator: str, phase2_key: str,
+                     drop_rule: str):
+    """The per-task half of ``map_decide``: each task's drop flag, Phase-II
+    key, nominated machine and whether it has a nominee, all (B, N).
+    Arguments as :func:`map_decide_plain`."""
     _check_kinds(nominator, phase2_key, drop_rule)
     B, N = deadline.shape
     M = eet.shape[-1]
@@ -147,16 +142,42 @@ def map_decide_plain(now, start, p_dyn, qfree, eet, deadline, pending,
     else:  # fcfs
         key = torch.arange(N, device=start.device,
                            dtype=torch.float32).expand(B, N)
+    return drop, key, best, valid
 
+
+def argmin_by_machine(key, best, valid, suffered_task, M: int):
+    """The reducing half of ``map_decide``: per machine, the lowest key
+    among the valid tasks nominating it, suffered (hi) and other (lo), with
+    the lowest task index on ties; ``(BIG, 0)`` where there is none.
+    Returns ``(hi_key, hi_task, lo_key, lo_task)``, each (B, M)."""
+    big = torch.full((), BIG, device=key.device)
     nominee = valid[:, :, None] & (
-        best[:, :, None] == torch.arange(M, device=start.device))
-    out = [drop]
+        best[:, :, None] == torch.arange(M, device=key.device))
+    out = []
     for pool in (suffered_task, ~suffered_task):
         masked = torch.where(nominee & pool[:, :, None], key[:, :, None], big)
         kmin, kidx = masked.min(dim=1)                    # lowest index
         has = kmin < BIG
         out += [torch.where(has, kmin, big), torch.where(has, kidx, 0)]
     return tuple(out)
+
+
+def map_decide_plain(now, start, p_dyn, qfree, eet, deadline, pending,
+                     task_type, suffered_task, *, nominator: str,
+                     phase2_key: str, drop_rule: str):
+    """What the ``map_decide`` kernel computes, in PyTorch ops.
+
+    now (B,) f32; start (B, M) f32; p_dyn (M,) or (B, M) f32; qfree (B, M)
+    bool; eet (S, M) or (B, S, M) f32; deadline (B, N) f32; pending,
+    suffered_task (B, N) bool; task_type (B, N) int64. Returns ``(drop
+    (B, N) bool, hi_key (B, M) f32, hi_task (B, M) int64, lo_key,
+    lo_task)``.
+    """
+    drop, key, best, valid = map_decide_tasks(
+        now, start, p_dyn, qfree, eet, deadline, pending, task_type,
+        nominator=nominator, phase2_key=phase2_key, drop_rule=drop_rule)
+    return (drop,) + argmin_by_machine(key, best, valid, suffered_task,
+                                       eet.shape[-1])
 
 
 def evict_stats_plain(start, qfree, eet, deadline, pending, task_type):

@@ -21,8 +21,12 @@ decay is formed only for j <= i: for j > i ``exp`` could overflow, and a
 mask times inf would give NaN.
 
 The wrapper runs :func:`ssd_scan_plain` when every input lies on the CPU,
-and otherwise launches the CUDA kernel (``csrc/ssm_scan.cu``) or raises.
-``LAUNCHES`` counts kernel launches, and nothing else.
+and otherwise launches one of the two CUDA kernels of ``csrc/ssm_scan.cu``
+or raises. The shape chooses the kernel (:func:`tensor_core_route`): the
+tensor-core route (``ssd_scan_tc``: the products on ``mma.sync`` TF32,
+each float32 operand split in two, 3xTF32) where Q, N and P sit on the
+tensor cores' grain, the CUDA-core route (``ssd_scan``) elsewhere.
+``LAUNCHES`` counts each route's launches, and nothing else.
 """
 from __future__ import annotations
 
@@ -40,8 +44,11 @@ from repro_torch.kernels.common import (
     stream_ptr,
 )
 
-#: Kernel launches since the last reset (the CPU path never counts).
-LAUNCHES = {"ssd_scan": 0}
+#: Kernel launches since the last reset, by route (the CPU path never
+#: counts): ``ssd_scan_tc`` the tensor cores, ``ssd_scan`` the CUDA cores.
+LAUNCHES = {"ssd_scan": 0, "ssd_scan_tc": 0}
+#: Dtypes whose values TF32 holds exactly.
+_TF32_EXACT = (torch.bfloat16, torch.float16)
 #: Shared memory one block may use on the card (H100: 227 KB).
 MAX_SHARED_BYTES = 232_448
 
@@ -54,6 +61,9 @@ def _lib():
         lib.ssd_scan_launch.argtypes = (
             [PTR] * 7 + [INT] * 7 + [INT] + [LL] * 3 + [PTR])
         lib.ssd_scan_launch.restype = INT
+        lib.ssd_scan_tc_launch.argtypes = (
+            [PTR] * 7 + [INT] * 7 + [INT] + [LL] * 3 + [INT] + [PTR])
+        lib.ssd_scan_tc_launch.restype = INT
         _LIB.append(lib)
     return _LIB[0]
 
@@ -71,6 +81,29 @@ def shared_bytes(Q: int, N: int, P: int) -> int:
     B (at an odd row stride) and C tiles, x, the (Q, Q) weights, the
     (N, P) state and four length-Q vectors, float32."""
     return 4 * (Q * (N | 1) + Q * N + Q * P + Q * Q + N * P + 4 * Q)
+
+
+def tensor_core_route(Q: int, N: int, P: int) -> bool:
+    """Whether the scan of chunk Q, state N and head dim P runs on the
+    tensor cores: Q a multiple of 16 up to 128, N of 16 up to 64, P of 8
+    up to 64 (the serve path's 128, 64, 64 does)."""
+    return (Q % 16 == 0 and 16 <= Q <= 128 and N % 16 == 0 and 16 <= N <= 64
+            and P % 8 == 0 and 8 <= P <= 64)
+
+
+def tc_shared_bytes(Q: int, itemsize: int) -> int:
+    """The tensor-core kernel's shared memory: a 2-stage ring of (Q, 64)
+    x tiles in x's dtype, the (Q, 64) float32 B tile, the (64, 64) state
+    as (S, lo) float32 pairs, each zero-padded past N and P, and four
+    length-Q float32 vectors."""
+    return 2 * Q * 64 * itemsize + 4 * Q * 64 + 8 * 64 * 64 + 16 * Q
+
+
+def _aligned16(x) -> bool:
+    """Whether x's base and its strides in bytes are multiples of 16."""
+    size = x.element_size()
+    return x.data_ptr() % 16 == 0 and all(
+        (st * size) % 16 == 0 for st in x.stride()[:3])
 
 
 def ssd_scan_plain(x, dt, A, Bm, Cm, *, chunk: int = 128):
@@ -136,23 +169,31 @@ def ssm_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
     for name, t in (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    if shared_bytes(Q, N, P) > MAX_SHARED_BYTES:
+    tc = tensor_core_route(Q, N, P)
+    if not tc and shared_bytes(Q, N, P) > MAX_SHARED_BYTES:
         raise ValueError(f"chunk {Q}, state {N}, head dim {P} need "
                          f"{shared_bytes(Q, N, P)} B of shared memory, above "
                          f"{MAX_SHARED_BYTES}")
     f32 = torch.float32
-    if x.stride(-1) != 1:
+    if x.stride(-1) != 1 or (tc and not _aligned16(x)):
         x = x.contiguous()
     dtf = dt.to(f32).contiguous()
     loga = (dtf * A.to(f32)[None, None, :]).contiguous()
     Bf, Cf = Bm.to(f32).contiguous(), Cm.to(f32).contiguous()
     y = torch.empty((B, L, H, P), dtype=x.dtype, device=dev)
     S = torch.empty((B, H, N, P), dtype=f32, device=dev)
-    rc = _lib().ssd_scan_launch(
+    route = "ssd_scan_tc" if tc else "ssd_scan"
+    launch = _lib().ssd_scan_tc_launch if tc else _lib().ssd_scan_launch
+    smem = tc_shared_bytes(Q, x.element_size()) if tc else \
+        shared_bytes(Q, N, P)
+    # bfloat16 and float16 B and C are exact in TF32: the tensor-core
+    # kernel then leaves out the products of their (zero) lo parts
+    exact = ([int(Bm.dtype in _TF32_EXACT and Cm.dtype in _TF32_EXACT)]
+             if tc else [])
+    rc = launch(
         x.data_ptr(), dtf.data_ptr(), loga.data_ptr(), Bf.data_ptr(),
-        Cf.data_ptr(), y.data_ptr(), S.data_ptr(), B, L, H, P, N, Q,
-        shared_bytes(Q, N, P), DTYPE_CODES[x.dtype], *x.stride()[:3],
-        stream_ptr(dev))
-    raise_on(rc, "ssd_scan")
-    LAUNCHES["ssd_scan"] += 1
+        Cf.data_ptr(), y.data_ptr(), S.data_ptr(), B, L, H, P, N, Q, smem,
+        DTYPE_CODES[x.dtype], *x.stride()[:3], *exact, stream_ptr(dev))
+    raise_on(rc, route)
+    LAUNCHES[route] += 1
     return y, S

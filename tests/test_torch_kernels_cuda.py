@@ -226,7 +226,8 @@ def test_decode_attention_matches_plain_on_card(Sk, H, Hkv, hd, dtype):
 ])
 def test_ssm_scan_matches_plain_on_card(L, H, P, N, chunk, dtype):
     """``tests/test_kernels.py``'s shapes and distributions; y in x's
-    dtype, the final state in float32 (atol 2e-4, bf16 y 2e-2)."""
+    dtype, the final state in float32 (atol 2e-4; bf16 y as
+    ``assert_ssd_matches_plain`` holds it)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     r = np.random.default_rng(L + H + P)
@@ -237,14 +238,9 @@ def test_ssm_scan_matches_plain_on_card(L, H, P, N, chunk, dtype):
         (r.standard_normal(H) * 0.3).astype(np.float32), device="cuda"))
     Bm = card_normal((2, L, N), L + 2)
     Cm = card_normal((2, L, N), L + 3)
-    y, S = ssm_scan.ssm_scan(x, dt, A, Bm, Cm, chunk=chunk)
-    torch.cuda.synchronize()
-    wy, wS = ssm_scan.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
-    assert y.dtype == dtype and S.dtype == torch.float32
-    torch.testing.assert_close(
-        y.float(), wy.float(), rtol=0,
-        atol=2e-4 if dtype == torch.float32 else 2e-2)
-    torch.testing.assert_close(S, wS, rtol=0, atol=2e-4)
+    args = (x, dt, A, Bm, Cm)
+    assert_ssd_matches_plain(args, chunk,
+                             ssm_scan.ssm_scan(*args, chunk=chunk))
 
 
 def flash_plain(**kw):
@@ -395,3 +391,184 @@ def test_attention_wrappers_count_one_launch_per_call():
             assert decode_attention.LAUNCHES["decode_attention"] \
                 == before + n
     torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------
+# The SSD scan's two routes, and map_decide's register / cluster design
+# --------------------------------------------------------------------------
+SSD_ROUTE_CASES = [  # B, L, H, P, N, chunk, route
+    (8, 1024, 80, 64, 64, 128, "ssd_scan_tc"),   # the serve shape
+    (2, 64, 2, 32, 16, 16, "ssd_scan_tc"),       # one row tile per chunk
+    (2, 192, 3, 24, 32, 96, "ssd_scan_tc"),      # P off 16, Q off 32
+    (2, 96, 1, 16, 8, 32, "ssd_scan"),           # N = 8
+    (2, 64, 2, 20, 16, 32, "ssd_scan"),          # P not a multiple of 8
+    (2, 64, 2, 32, 16, 8, "ssd_scan"),           # Q < 16
+    (1, 256, 2, 64, 80, 128, "ssd_scan"),        # N above 64
+]
+
+
+def ssd_card_inputs(B, L, H, P, N, dtype, seed):
+    r = np.random.default_rng(seed)
+    x = card_normal((B, L, H, P), seed, dtype)
+    dt = torch.nn.functional.softplus(card_normal((B, L, H), seed + 1,
+                                                  scale=1.0))
+    A = -torch.exp(torch.as_tensor(
+        (r.standard_normal(H) * 0.3).astype(np.float32), device="cuda"))
+    return x, dt, A, card_normal((B, L, N), seed + 2), \
+        card_normal((B, L, N), seed + 3)
+
+
+def bf16_ssd_bound(want):
+    """Per element, how far the tensor-core scan's bf16 y may lie from the
+    plain version's bf16 y ``want``: each is the bf16 rounding of a float32
+    y (at most 2^-8 of it away) and the two float32 ys lie within 2e-4 of
+    each other, so |got - want| <= 2^-7 |want| / (1 - 2^-8) + (1 + 2^-8)
+    2e-4."""
+    return 2.0 ** -7 / (1 - 2.0 ** -8) * want.float().abs() \
+        + (1 + 2.0 ** -8) * 2e-4
+
+
+def assert_ssd_matches_plain(args, chunk, got):
+    """The scan's (y, S) against the plain version on the same inputs: S
+    within 2e-4; y within 2e-4 in float32 and 2e-2 in bf16 on the CUDA
+    cores. A bf16 y on the tensor cores: element by element within
+    ``bf16_ssd_bound`` of the plain version's bf16 y, and within 2e-2
+    wherever |y| < 4 (further out a sum in another order rounds to the
+    neighbouring bf16 value now and then, one step of 2^-5 or more). The
+    bf16 instance is the float32 instance on the same values plus one
+    rounding of y, so its y must also be that rounding bit for bit, and
+    the float32 y within 2e-4 of the plain version's float32 y."""
+    x = args[0]
+    B, L, H, P = x.shape
+    want = ssm_scan.ssd_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert got[0].dtype == x.dtype and got[1].dtype == torch.float32
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=2e-4)
+    tc = ssm_scan.tensor_core_route(min(chunk, L), args[3].shape[-1], P)
+    if x.dtype == torch.float32 or not tc:
+        torch.testing.assert_close(
+            got[0].float(), want[0].float(), rtol=0,
+            atol=2e-4 if x.dtype == torch.float32 else 2e-2)
+        return
+    diff = (got[0].float() - want[0].float()).abs()
+    assert float((diff / bf16_ssd_bound(want[0])).max()) <= 1.0
+    near = want[0].float().abs() < 4
+    assert float(torch.where(near, diff, 0.0).max()) <= 2e-2
+    wide = (x.float(),) + tuple(args[1:])
+    got32 = ssm_scan.ssm_scan(*wide, chunk=chunk)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got32.to(torch.bfloat16))
+    torch.testing.assert_close(
+        got32, ssm_scan.ssd_scan_plain(*wide, chunk=chunk)[0], rtol=0,
+        atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,P,N,chunk,route", SSD_ROUTE_CASES)
+def test_ssm_scan_routes_by_shape_on_card(B, L, H, P, N, chunk, route, dtype):
+    """The shape picks the route (tensor cores for Q, N, P on the mma
+    grain), one launch on that route's count, and both routes equal the
+    plain version within the SSD tolerances."""
+    needs_card()
+    assert ssm_scan.tensor_core_route(min(chunk, L), N, P) == (
+        route == "ssd_scan_tc")
+    args = ssd_card_inputs(B, L, H, P, N, dtype, L + H + P + N)
+    before = dict(ssm_scan.LAUNCHES)
+    got = ssm_scan.ssm_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in ssm_scan.LAUNCHES.items()} == {
+        k: int(k == route) for k in before}
+    assert_ssd_matches_plain(args, chunk, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width,P,N", [(40, 32, 16), (33, 32, 16),
+                                       (37, 16, 8)])
+def test_ssm_scan_reads_strided_x_on_both_routes_on_card(width, P, N, dtype):
+    """x as a view into a wider row, as the model passes it: a row stride
+    of 40 elements keeps 16-byte rows (the tensor-core kernel reads it in
+    place), 33 does not (the wrapper copies first); N = 8 takes the
+    CUDA-core route. All equal the contiguous input's result."""
+    needs_card()
+    B, L, H = 2, 128, 2
+    x, dt, A, Bm, Cm = ssd_card_inputs(B, L, H, P, N, dtype, width)
+    wide = torch.zeros((B, L, H * width), dtype=dtype, device="cuda")
+    wide.view(B, L, H, width)[..., :P] = x
+    view = wide.view(B, L, H, width)[..., :P]
+    assert not view.is_contiguous()
+    got = ssm_scan.ssm_scan(view, dt, A, Bm, Cm, chunk=64)
+    want = ssm_scan.ssm_scan(x.contiguous(), dt, A, Bm, Cm, chunk=64)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert_ssd_matches_plain((x, dt, A, Bm, Cm), 64, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,M", [
+    (3, 1001, 3), (7, 13, 5), (150, 2000, 4), (100, 998, 8), (263, 1003, 4),
+    (264, 1002, 8), (300, 999, 1), (5, 1000, 9), (270, 1002, 20),
+])
+def test_map_decide_split_and_slots_match_plain_on_card(B, N, M):
+    """map_decide bit for bit on both sides of the cluster split (rows
+    below and from 2 x 132), N % 4 != 0 (tasks before and after the
+    16-byte groups), M on both sides of 8 (register slots or shared
+    atomics), with every kind."""
+    needs_card()
+    t = {k: torch.as_tensor(v, device="cuda")
+         for k, v in kernel_inputs(B, N, M, 4, seed=N).items()}
+    md = (t["now"], t["start"], t["p_dyn"], t["qfree"], t["eet"],
+          t["deadline"], t["pending"], t["task_type"])
+    for nom, key, drop in ALL_KINDS:
+        kw = dict(nominator=nom, phase2_key=key, drop_rule=drop)
+        got = map_fused.map_decide(*md, t["suffered"], **kw)
+        torch.cuda.synchronize()
+        want = map_fused.map_decide_plain(*md, t["suffered"], **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (B, N, M, kw)
+
+
+@pytest.mark.cuda
+def test_map_decide_reads_unaligned_task_arrays_on_card():
+    """Task arrays that start off a 16-byte boundary (views one task in)
+    go one task at a time and still equal the plain version."""
+    needs_card()
+    B, N, M = 6, 500, 4
+    x = kernel_inputs(B, N + 1, M, 4, seed=3)
+    t = {k: torch.as_tensor(v, device="cuda") for k, v in x.items()}
+    # Each task array as a contiguous (B, N) view one element into its
+    # flat storage.
+    shifted = {k: t[k].reshape(-1)[1:1 + B * N].view(B, N)
+               for k in ("deadline", "pending", "task_type", "suffered")}
+    assert shifted["deadline"].data_ptr() % 16 != 0
+    md = (t["now"], t["start"], t["p_dyn"], t["qfree"], t["eet"],
+          shifted["deadline"], shifted["pending"], shifted["task_type"])
+    for nom, key, drop in ALL_KINDS[::5]:
+        kw = dict(nominator=nom, phase2_key=key, drop_rule=drop)
+        got = map_fused.map_decide(*md, shifted["suffered"], **kw)
+        torch.cuda.synchronize()
+        want = map_fused.map_decide_plain(*md, shifted["suffered"], **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bc_dtype", [torch.bfloat16, torch.float16])
+def test_ssm_scan_exact_bc_is_the_general_route_bit_for_bit_on_card(
+        bc_dtype, dtype):
+    """B and C in bfloat16 or float16 (as the model passes them) are exact
+    in TF32: the tensor-core kernel then leaves out the products of their
+    zero lo parts, which changes no bit of y or S against the same values
+    passed as float32."""
+    needs_card()
+    x, dt, A, Bm, Cm = ssd_card_inputs(2, 256, 4, 64, 64, dtype, 17)
+    Bh, Ch = Bm.to(bc_dtype), Cm.to(bc_dtype)
+    got = ssm_scan.ssm_scan(x, dt, A, Bh, Ch, chunk=128)
+    want = ssm_scan.ssm_scan(x, dt, A, Bh.float(), Ch.float(), chunk=128)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert_ssd_matches_plain((x, dt, A, Bh, Ch), 128, got)
