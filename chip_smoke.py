@@ -20,16 +20,22 @@ raises, so the script exits non-zero and prints no result line:
               global-load and shared-atomic (ATOMS) instructions in its
               SASS (``cuobjdump``): flash attention must issue wgmma,
               decode attention 16-byte loads, every tensor-core instance of
-              the SSD scan mma.sync without spilling, and map_decide's
-              instances for up to 8 machines no shared atomic;
+              the SSD scan mma.sync without spilling, map_decide's
+              instances for up to 8 machines no shared atomic, and
+              evict_stats and balance_scan 128-bit global loads;
   3. kernels  each scheduling kernel against its plain PyTorch version on
               the card, bit for bit (``torch.equal`` on every output): the
               map kernels at the flat path's shape and at a wide one, over
               every nominator x key x drop rule with the suffered split on
               and off, and in their per-row EET form at the federation's
-              block-fold and masked-fold shapes; ``balance_scan`` at the
-              federated path's shape and at F = 32 and 37, over sparse to
-              full admissions, tied loads and dead-site penalties;
+              block-fold and masked-fold shapes (task types int32);
+              evict_stats also with row 0 without a free machine and
+              deadlines at start + e and at +inf, at the flat, block-fold
+              and masked-fold shapes; ``balance_scan`` at the federated
+              path's shape, at F = 1, 32, 37 and 1024, with more new tasks
+              than one tile of the kernel and N off every vector grain,
+              over no, sparse and all tasks new, tied loads, dead-site
+              penalties and loads too large for the packed keys;
   4. model_kernels  flash attention, decode attention and the SSD scan
               against their plain versions on the card, in float32 and
               bfloat16, at ``tests/test_kernels.py``'s shapes (MHA, GQA,
@@ -146,9 +152,16 @@ FED_TASKS = 4000
 TIER_RATES = (12.0, 24.0)                        # tiered_x4, total tasks/s
 TIER_REPS, TIER_TASKS = 10, 2000
 CPU_SUBSET_TASKS = 1000
+# balance_scan: the federated path's shape, then more new tasks than one
+# 4096-task tile of the kernel, and N off the 16-task vector grain.
 BALANCE_SHAPES = (dict(B=150, N=FED_TASKS, F=8), dict(B=8, N=10_000, F=32),
-                  dict(B=8, N=10_000, F=37))
-BALANCE_DENSITIES = (0.01, 0.5, 1.0)
+                  dict(B=8, N=10_000, F=37), dict(B=6, N=4001, F=1),
+                  dict(B=6, N=5003, F=1024))
+BALANCE_DENSITIES = (0.0, 0.01, 0.5, 1.0)
+# Loads: all tied, small with dead sites, and above the packed keys' range
+# (the 64-bit walk; sparse and full admissions only).
+BALANCE_LOADS = {"equal": BALANCE_DENSITIES, "mixed": BALANCE_DENSITIES,
+                 "wide": (0.5, 1.0)}
 # Per-row EET shapes: paper_x8's block fold (B * F rows of m = 4 machines)
 # and tiered_x4's masked fold (B * F rows of all 20 machines).
 BLOCK_ROWS = dict(B=150, F=8, N=FED_TASKS, m=4, S=4)
@@ -318,10 +331,36 @@ def kernel_inputs(B, N, M, S, seed, device):
         p_dyn=r.choice([1.5, 1.6, 3.0], M).astype(f32), qfree=qfree,
         eet=eet.astype(f32), deadline=deadline.astype(f32),
         pending=r.random((B, N)) < 0.8,
-        task_type=r.integers(0, S, (B, N)).astype(np.int64),
+        # drawn as int64, kept as int32 (the type the kernels take)
+        task_type=r.integers(0, S, (B, N)).astype(np.int32),
         suffered=r.random((B, N)) < 0.3,
     )
     return {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+
+
+def evict_edges(x, seed):
+    """``evict_stats`` inputs at their edges: row 0 without a free machine,
+    30 % of the deadlines exactly start + e of a random machine, 10 % of
+    them +inf."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.eet import eet_at
+
+    r = np.random.default_rng(seed)
+    B, N = x["deadline"].shape
+    M = x["start"].shape[1]
+    dev = x["deadline"].device
+    m = torch.as_tensor(r.integers(0, M, (B, N)), device=dev)
+    exact = x["start"].gather(1, m) + eet_at(
+        x["eet"], x["task_type"].long(), m)
+    pick = torch.as_tensor(r.random((B, N)), device=dev)
+    qfree = x["qfree"].clone()
+    qfree[0] = False
+    deadline = torch.where(pick < 0.3, exact, x["deadline"])
+    deadline = torch.where(pick > 0.9, torch.full_like(deadline, np.inf),
+                           deadline)
+    return {**x, "qfree": qfree, "deadline": deadline.contiguous()}
 
 
 def map_decide_args(x):
@@ -376,17 +415,18 @@ def check_kernels(device) -> dict:
                         errs["map_decide"] = max(errs["map_decide"], compare(
                             out_k, out_p, f"map_decide {label} {kw}"))
                         cases += 1
-        out_k = map_fused.evict_stats(*evict_stats_args(x))
-        torch.cuda.synchronize()
-        errs["evict_stats"] = max(errs["evict_stats"], compare(
-            out_k, map_fused.evict_stats_plain(*evict_stats_args(x)),
-            f"evict_stats {label}"))
+        for case, xe in (("", x), (" edges", evict_edges(x, seed=12))):
+            out_k = map_fused.evict_stats(*evict_stats_args(xe))
+            torch.cuda.synchronize()
+            errs["evict_stats"] = max(errs["evict_stats"], compare(
+                out_k, map_fused.evict_stats_plain(*evict_stats_args(xe)),
+                f"evict_stats {label}{case}"))
         out_k = phase1_map.phase1_map(*phase1_args(x))
         torch.cuda.synchronize()
         errs["phase1_map"] = max(errs["phase1_map"], compare(
             out_k, phase1_map.phase1_map_plain(*phase1_args(x)),
             f"phase1_map {label}"))
-        cases += 2
+        cases += 3
         emit("kernels", shape=label, **shape, cases=cases, equal=True)
     return errs
 
@@ -425,14 +465,17 @@ def per_row_inputs(B, N, S, sites, seed, device, block: bool):
 def balance_inputs(B, N, F, density, loads, seed, device):
     """``balance_scan`` inputs: admissions at ``density``, targets on half
     the tasks (every task in the first half of the replicates, as for
-    ``least_queued``), random homes, and loads either all equal (every
-    argmin a tie) or small and random with some sites dead (+1,000,000)."""
+    ``least_queued``), random homes, and loads all equal (every argmin a
+    tie), small and random with some sites dead (+1,000,000), or from
+    2^22 up ("wide": beyond the kernel's packed keys)."""
     import numpy as np
     import torch
 
     r = np.random.default_rng(seed)
     if loads == "equal":
         load0 = np.full((B, F), 3, np.int64)
+    elif loads == "wide":
+        load0 = r.integers(0, 6, (B, F)) + (1 << 22)
     else:
         load0 = r.integers(0, 6, (B, F)) \
             + 1_000_000 * (r.random((B, F)) < 0.25)
@@ -453,8 +496,8 @@ def check_federation_kernels(device, errs: dict) -> None:
 
     cases = 0
     for shape in BALANCE_SHAPES:
-        for density in BALANCE_DENSITIES:
-            for loads in ("equal", "mixed"):
+        for loads, densities in BALANCE_LOADS.items():
+            for density in densities:
                 args = balance_inputs(**shape, density=density, loads=loads,
                                       seed=cases, device=device)
                 got = map_fused.balance_scan(*args)
@@ -464,7 +507,8 @@ def check_federation_kernels(device, errs: dict) -> None:
                     f"balance_scan {shape} {density} {loads}"))
                 cases += 1
         emit("kernels", kernel="balance_scan", **shape,
-             densities=list(BALANCE_DENSITIES), cases=cases, equal=True)
+             densities=list(BALANCE_DENSITIES), loads=list(BALANCE_LOADS),
+             cases=cases, equal=True)
     for label, shape, block in (
             ("block_fold", BLOCK_ROWS, True),
             ("masked_fold", MASKED_ROWS, False)):
@@ -488,14 +532,15 @@ def check_federation_kernels(device, errs: dict) -> None:
                                 *map_decide_args(x), suff, **kw),
                             f"map_decide {label} {kw}"))
                         n += 1
-        out_k = map_fused.evict_stats(*evict_stats_args(x))
-        torch.cuda.synchronize()
-        errs["evict_stats"] = max(errs["evict_stats"], compare(
-            out_k, map_fused.evict_stats_plain(*evict_stats_args(x)),
-            f"evict_stats {label}"))
+        for case, xe in (("", x), (" edges", evict_edges(x, seed=18))):
+            out_k = map_fused.evict_stats(*evict_stats_args(xe))
+            torch.cuda.synchronize()
+            errs["evict_stats"] = max(errs["evict_stats"], compare(
+                out_k, map_fused.evict_stats_plain(*evict_stats_args(xe)),
+                f"evict_stats {label}{case}"))
         emit("kernels", shape=label, rows=int(x["eet"].shape[0]),
              N=shape["N"], M=int(x["eet"].shape[2]), eet=list(x["eet"].shape),
-             cases=n + 1, equal=True)
+             cases=n + 2, equal=True)
 
 
 # --------------------------------------------------------------------------
@@ -1413,11 +1458,13 @@ def time_kernels(device, errs: dict) -> list:
                 lambda: map_fused.map_decide_plain(*md_args, **kinds),
                 nbytes(*md_args, *map_fused.map_decide(*md_args, **kinds)),
                 B * N * (4 * M + 2)),
+            # per type and machine a sum and two minima, per task three
+            # comparisons
             "evict_stats": (
                 lambda: map_fused.evict_stats(*es_args),
                 lambda: map_fused.evict_stats_plain(*es_args),
                 nbytes(*es_args, *map_fused.evict_stats(*es_args)),
-                B * N * 3 * M),
+                B * (3 * x["eet"].shape[-2] * M + 3 * N)),
         }
         if path == "flat":
             p1_args = phase1_args(x)
@@ -1721,6 +1768,11 @@ def main(argv=None) -> int:
         ms = map_decide_slots(f)
         if ms is not None:
             map_atoms.setdefault(f"MS={ms}", []).append(c["ATOMS"])
+    wide_loads = {
+        name: [c["LDG.E.128"] for f, c in sass[lib]["functions"].items()
+               if f"{name}_kernel" in f]
+        for name, lib in (("evict_stats", "map_fused"),
+                          ("balance_scan", "balance_scan"))}
     emit("build", wall_seconds=time.perf_counter() - t_build,
          seconds={k: v["seconds"] for k, v in logs.items()},
          registers_per_thread={k: [r[0], r[-1]] for k, r in regs.items()},
@@ -1728,7 +1780,8 @@ def main(argv=None) -> int:
          sass={k: v["total"] for k, v in sass.items()},
          ssd_scan_tc={"sass": ssd_tc, "ptxas": ptxas_ssd},
          map_decide_atoms_by_slots={k: [min(v), max(v)]
-                                    for k, v in map_atoms.items()})
+                                    for k, v in map_atoms.items()},
+         ldg128_by_instance=wide_loads)
     require(sass["flash_attention"]["total"]["HGMMA"] > 0,
             "flash_attention: no wgmma (HGMMA) in its SASS")
     require(sass["decode_attention"]["total"]["LDG.E.128"] > 0,
@@ -1740,6 +1793,9 @@ def main(argv=None) -> int:
     require(len(ptxas_ssd) == 4
             and all(r["spill"] == 0 for r in ptxas_ssd.values()),
             f"ssd_scan: the tensor-core instances spill: {ptxas_ssd}")
+    for name, counts in wide_loads.items():
+        require(counts and min(counts) > 0,
+                f"{name}: an instance without 128-bit loads: {counts}")
     require(map_atoms.get("MS=4") and map_atoms.get("MS=8")
             and max(map_atoms["MS=4"] + map_atoms["MS=8"]) == 0
             and min(map_atoms["MS=0"]) > 0,

@@ -22,6 +22,11 @@ finished replicate stays frozen as under ``vmap``. The host reads
 ``active.any()`` once every :data:`CHECK_EVERY` iterations; the extra
 iterations are harmless because inactive replicates are frozen.
 
+Task types come in as the trace keeps them (int32, as in the reference).
+Each simulation makes one int64 copy, which every gather, scatter and
+index of the loop takes, and keeps the int32 one for the kernels, so no
+iteration casts.
+
 A federation partitions the M machines into F sites. The dispatch stage
 gives each newly-admitted task a site, once; the map stage then runs the
 policy once per iteration over B * F rows, row ``b * F + f`` being site
@@ -176,7 +181,8 @@ class _Fold(NamedTuple):
 class _SiteRows(NamedTuple):
     """The folded arrays that do not change during a simulation."""
 
-    task_type: torch.Tensor    # (B * F, N)
+    task_type: torch.Tensor    # (B * F, N) int64
+    task_type32: torch.Tensor  # (B * F, N) int32, for the kernels
     deadline: torch.Tensor     # (B * F, N)
     sysarr: SystemArrays       # eet (B * F, S, w), p_dyn (B * F, w) or (M,)
 
@@ -208,8 +214,10 @@ def _make_fold(sysarr: SystemArrays, sites: tuple) -> _Fold:
                  site_minima(sysarr.eet, members))
 
 
-def _site_rows(fold: _Fold, trace: Trace) -> _SiteRows:
-    """Build the folded task arrays and tables once per simulation."""
+def _site_rows(fold: _Fold, trace: Trace, types32: torch.Tensor
+               ) -> _SiteRows:
+    """Build the folded task arrays and tables once per simulation
+    (``trace`` with int64 types, ``types32`` the int32 ones)."""
     B = trace.arrival.shape[0]
     F = fold.n_sites
     tables = fold.sysarr
@@ -220,6 +228,7 @@ def _site_rows(fold: _Fold, trace: Trace) -> _SiteRows:
     else:
         tables = tables._replace(eet=eet)
     return _SiteRows(trace.task_type.repeat_interleave(F, dim=0),
+                     types32.repeat_interleave(F, dim=0),
                      trace.deadline.repeat_interleave(F, dim=0), tables)
 
 
@@ -265,14 +274,16 @@ def _stage_dispatch(st: SimState, trace: Trace, sysarr: SystemArrays,
 def _map_action(st: SimState, trace: Trace, sysarr: SystemArrays,
                 select_fn: Callable, fairness_factor: float,
                 fold: Optional[_Fold] = None,
-                rows: Optional[_SiteRows] = None) -> MapAction:
+                rows: Optional[_SiteRows] = None,
+                types32: Optional[torch.Tensor] = None) -> MapAction:
     """The :class:`MapAction` of one batched mapping event (pre-apply).
 
     With a federation the policy runs once over the B * F site views and
     the per-site actions are combined: machine ``m`` takes its owner's
     ``assign``/``queue_drop`` entry, and task ``k`` its own site's
     ``drop`` entry, only once it has a site. ``suffered`` is computed
-    once per replicate and shared by its F rows.
+    once per replicate and shared by its F rows. ``types32`` is the
+    trace's int32 copy of its types, handed to the policy for the kernels.
     """
     suffered = fairness.suffered_types(st.completed, st.arrived,
                                        fairness_factor)
@@ -284,7 +295,7 @@ def _map_action(st: SimState, trace: Trace, sysarr: SystemArrays,
         view = MachineView(avail_base=avail_base, queue=st.queue,
                            qlen=st.qlen)
         return select_fn(st.now, pending, trace.task_type, trace.deadline,
-                         view, sysarr, suffered)
+                         view, sysarr, suffered, task_type32=types32)
 
     B, M, Q = st.queue.shape
     n = pending.shape[1]
@@ -306,7 +317,8 @@ def _map_action(st: SimState, trace: Trace, sysarr: SystemArrays,
             qlen=torch.where(mem, st.qlen[:, None, :], Q).reshape(B * F, M))
     act = select_fn(st.now.repeat_interleave(F), at_site, rows.task_type,
                     rows.deadline, view, rows.sysarr,
-                    suffered.repeat_interleave(F, dim=0))
+                    suffered.repeat_interleave(F, dim=0),
+                    task_type32=rows.task_type32)
     drop = (act.drop.reshape(B, F, n).gather(
         1, st.site.clamp(0, F - 1)[:, None, :])[:, 0] & (st.site >= 0))
     if fold.block:
@@ -322,10 +334,11 @@ def _map_action(st: SimState, trace: Trace, sysarr: SystemArrays,
 def _stage_map(st: SimState, trace: Trace, sysarr: SystemArrays,
                select_fn: Callable, fairness_factor: float, n_types: int,
                fold: Optional[_Fold] = None,
-               rows: Optional[_SiteRows] = None):
+               rows: Optional[_SiteRows] = None,
+               types32: Optional[torch.Tensor] = None):
     """Run the mapping policy and apply its action."""
     action = _map_action(st, trace, sysarr, select_fn, fairness_factor,
-                         fold, rows)
+                         fold, rows, types32)
     return _apply_action(st, trace, action, n_types)
 
 
@@ -424,10 +437,14 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
     def run(trace: Trace) -> SimState:
         n = trace.arrival.shape[1]
         cap = max_steps if max_steps is not None else 8 * n + 64
+        # the two forms of the types, made once: int32 for the kernels,
+        # int64 for everything that indexes with them
+        types32 = trace.task_type.to(torch.int32).contiguous()
+        trace = trace._replace(task_type=trace.task_type.to(torch.int64))
         st = _init_state(trace, M, queue_size, S, n_sites)
         rows, max_new = None, 0
         if fold is not None:
-            rows = _site_rows(fold, trace)
+            rows = _site_rows(fold, trace, types32)
             max_new = _max_admissions(trace.arrival)
         it = 0
         while True:
@@ -442,7 +459,7 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
                 new = _stage_dispatch(new, trace, sysarr, dispatcher, fold,
                                       fairness_factor, max_new)
             new = _stage_map(new, trace, sysarr, select_fn, fairness_factor,
-                             S, fold, rows)
+                             S, fold, rows, types32)
             new = _stage_start(new, trace, sysarr)
             new = new._replace(steps=new.steps + 1)
             st = _freeze(active, new, st)
@@ -498,7 +515,7 @@ def _metrics(st: SimState, sysarr: SystemArrays) -> Metrics:
 def _to_device(trace: Trace, device) -> Trace:
     return Trace(
         arrival=trace.arrival.to(device, torch.float32),
-        task_type=trace.task_type.to(device, torch.int64),
+        task_type=trace.task_type.to(device, torch.int32),
         deadline=trace.deadline.to(device, torch.float32),
         exec_actual=trace.exec_actual.to(device, torch.float32),
     )

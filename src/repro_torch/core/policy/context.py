@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -54,11 +54,15 @@ class SchedContext:
 
     now: torch.Tensor        # (B,) f32 current event time
     pending: torch.Tensor    # (B, N) bool — task is in the arriving queue
-    task_type: torch.Tensor  # (B, N) int64
+    task_type: torch.Tensor  # (B, N) int64, the form indexing takes
     deadline: torch.Tensor   # (B, N) f32
     view: MachineView
     sysarr: SystemArrays
     suffered: torch.Tensor   # (B, S) bool — fairness monitor (Alg. 4)
+    #: (B, N) int32 copy of ``task_type``, the form the kernels take; the
+    #: engine builds it once per simulation. ``None``: :attr:`types32`
+    #: casts on first use.
+    task_type32: Optional[torch.Tensor] = None
 
     # -- static shapes ------------------------------------------------------
     @property
@@ -72,6 +76,13 @@ class SchedContext:
     @property
     def queue_slots(self) -> int:
         return self.view.queue.shape[2]
+
+    @functools.cached_property
+    def types32(self):
+        """(B, N) int32 task types for the kernels."""
+        if self.task_type32 is not None:
+            return self.task_type32
+        return self.task_type.to(torch.int32)
 
     # -- derived machine state ---------------------------------------------
     @functools.cached_property

@@ -127,9 +127,11 @@ class FairnessPolicy:
         return finalize(ctx, assign, self.base.drop_rule.drop(ctx), qdrop)
 
     def __call__(self, now, pending, task_type, deadline, view: MachineView,
-                 sysarr: SystemArrays, suffered) -> MapAction:
+                 sysarr: SystemArrays, suffered,
+                 task_type32=None) -> MapAction:
         return self.select(SchedContext(
-            now, pending, task_type, deadline, view, sysarr, suffered
+            now, pending, task_type, deadline, view, sysarr, suffered,
+            task_type32
         ))
 
     def describe(self) -> PolicyDesc:

@@ -62,7 +62,7 @@ class FusedMapPolicy:
         if desc.fairness:
             task_feas_now, min_exec = map_fused.evict_stats(
                 ctx.start, ctx.qfree, ctx.sysarr.eet, ctx.deadline,
-                ctx.pending, ctx.task_type)
+                ctx.pending, ctx.types32)
             qdrop = fair_mod._plan_eviction_from_stats(
                 ctx, task_feas_now, min_exec)
             ctx2 = ctx.with_view(fair_mod._evicted_view(ctx, qdrop))
@@ -75,7 +75,7 @@ class FusedMapPolicy:
 
         drop, hi_key, hi_task, lo_key, lo_task = map_fused.map_decide(
             ctx.now, ctx2.start, ctx.sysarr.p_dyn, ctx2.qfree,
-            ctx.sysarr.eet, ctx.deadline, ctx.pending, ctx.task_type,
+            ctx.sysarr.eet, ctx.deadline, ctx.pending, ctx.types32,
             suffered_task, nominator=desc.nominator,
             phase2_key=desc.phase2_key, drop_rule=desc.drop_rule)
 
@@ -89,9 +89,11 @@ class FusedMapPolicy:
         return finalize(ctx, assign, drop, qdrop)
 
     def __call__(self, now, pending, task_type, deadline, view: MachineView,
-                 sysarr: SystemArrays, suffered) -> MapAction:
+                 sysarr: SystemArrays, suffered,
+                 task_type32=None) -> MapAction:
         return self.select(SchedContext(
-            now, pending, task_type, deadline, view, sysarr, suffered
+            now, pending, task_type, deadline, view, sysarr, suffered,
+            task_type32
         ))
 
     def describe(self) -> PolicyDesc:

@@ -143,7 +143,7 @@ class Trace(NamedTuple):
     """
 
     arrival: torch.Tensor      # (..., N) f32
-    task_type: torch.Tensor    # (..., N) int64
+    task_type: torch.Tensor    # (..., N) int32, as in the reference
     deadline: torch.Tensor     # (..., N) f32  (Eq. 4)
     exec_actual: torch.Tensor  # (..., N, M) f32 actual runtimes
 

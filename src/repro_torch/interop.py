@@ -51,7 +51,7 @@ def trace_from_arrays(arrival, task_type, deadline, exec_actual,
     to = _to(device)
     return Trace(
         arrival=to(arrival, np.float32),
-        task_type=to(task_type, np.int64),
+        task_type=to(task_type, np.int32),
         deadline=to(deadline, np.float32),
         exec_actual=to(exec_actual, np.float32),
     )
@@ -96,7 +96,9 @@ def context_from_arrays(*, now, pending, task_type, deadline, avail_base,
     ``task_type``, ``deadline`` (B, N), ``avail_base``, ``qlen`` (B, M),
     ``queue`` (B, M, Q), ``suffered`` (B, S). ``eet`` (S, M), ``p_dyn``
     and ``p_idle`` (M,) are shared by the batch; ``eet`` (B, S, M) and
-    ``p_dyn`` (B, M) give each replicate its own.
+    ``p_dyn`` (B, M) give each replicate its own. The types are carried
+    both ways the engine carries them: int64 for indexing, int32 for the
+    kernels.
     """
     to = _to(device)
     return SchedContext(
@@ -110,6 +112,7 @@ def context_from_arrays(*, now, pending, task_type, deadline, avail_base,
                             p_dyn=to(p_dyn, np.float32),
                             p_idle=to(p_idle, np.float32)),
         suffered=to(suffered, np.bool_),
+        task_type32=to(task_type, np.int32),
     )
 
 

@@ -8,11 +8,11 @@
 //     now on some free machine, and the fastest EET.
 //
 // What bounds them on this card: bytes. Per task map_decide reads a
-// deadline (4 B), a type (8 B) and two flags (1 B each) and writes one
-// flag (1 B); evict_stats reads 13 B and writes 5 B. The EET table and the
-// (M,) machine state are a few KB that stay in L1. At the main path's
-// shape (B = 150 replicates, N = 2000 tasks, M = 4) that is 4.5 MB and
-// 5.4 MB, about 1.3 us and 1.6 us at 3.35 TB/s, below the cost of one
+// deadline (4 B), an int32 type (4 B) and two flags (1 B each) and writes
+// one flag (1 B); evict_stats reads 9 B and writes 5 B. The EET table and
+// the (M,) machine state are a few KB that stay in L1. At the main path's
+// shape (B = 150 replicates, N = 2000 tasks, M = 4) that is 3.3 MB and
+// 4.2 MB, about 1.0 us and 1.3 us at 3.35 TB/s, below the cost of one
 // launch; the float work (a few dozen operations per task) is far from
 // the 67 TFLOP/s float32 rate.
 //
@@ -32,9 +32,9 @@
 //
 // map_decide:
 // * Each thread takes 4 tasks at a time: a float4 of deadlines, uchar4s of
-//   the pending and suffered flags, two longlong2s of types, and one
-//   uchar4 store of the drop flags; the few tasks before the row's first
-//   16-byte boundary and after its last go one by one.
+//   the pending and suffered flags, an int4 of types, and one uchar4 store
+//   of the drop flags; the few tasks before the row's first 16-byte
+//   boundary and after its last go one by one.
 // * For M <= 8 (the template parameter MS = 4 or 8 bounds M) each thread
 //   keeps its running minimum per (pool, machine) slot in registers across
 //   all its tasks (a 32-bit order key and the task: a thread meets its
@@ -51,10 +51,27 @@
 //   (size x 128) = 128 r + u, and likewise the single tasks before and
 //   after them, and block 0 merges the cluster's slots through
 //   distributed shared memory in the same launch.
-// evict_stats: one thread per (replicate, task).
+// evict_stats:
+// * Both outputs depend on a task only through (type, deadline, pending).
+//   So each block first builds, for every type s of its row, in shared
+//   memory: min_exec[s] = min_m e[s][m], T[s] = min over free m of
+//   (start[m] + e[s][m]) and the flag any_free[s], one warp per type, its
+//   lanes over the machines and a shuffle reduction across them. Then
+//   feas = pending && any_free[type] && T[type] <= d, with no loop over
+//   machines per task. That equals the plain version's any_m(free &&
+//   start + e <= d) bit for bit: each sum rounds as there, and a minimum
+//   adds no rounding in any order. any_free stays its own flag (an
+//   infinite T would read true for a task whose deadline is +inf).
+// * Each thread takes 4 tasks at a time: a float4 of deadlines, an int4 of
+//   types and a uchar4 of pending flags in, a uchar4 of feas flags and a
+//   float4 of min_exec out; the tasks before the row's first 16-byte
+//   boundary and after its last go one by one. A row is split over as
+//   many blocks as fill the card twice over (at most one group of 4 per
+//   thread and block), each of which builds the row's tables itself.
 //
 // Built with -fmad=false: every multiply and add rounds on its own, as
 // the plain PyTorch version does, and the decisions match it bit for bit.
+#include <cmath>
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -67,6 +84,8 @@ constexpr float BIG = 1e30f;
 constexpr int THREADS = 128;  // map_decide: 128 measured faster than 256
 constexpr int WARPS = THREADS / 32;
 constexpr int EVICT_THREADS = 256;
+// evict_stats splits rows until the grid holds this many blocks per SM.
+constexpr int EVICT_BLOCKS_PER_SM = 4;
 constexpr unsigned FULL = 0xffffffffu;
 // Below this many rows a row is split over a cluster (2 blocks per SM).
 constexpr int SPLIT_BELOW_ROWS = 2 * 132;
@@ -136,7 +155,7 @@ struct Decision {
 // task's index in its row).
 template <int NOM, int KEY, int DROP, int MS>
 __device__ __forceinline__ Decision decide(int i, float d, bool pend,
-                                           int64_t type, float now,
+                                           int type, float now,
                                            const Machines<MS>& mc,
                                            const float* __restrict__ eet_b,
                                            int M) {
@@ -235,7 +254,7 @@ __global__ void __launch_bounds__(THREADS) map_decide_kernel(
     const uint8_t* __restrict__ qfree, const float* __restrict__ eet,
     int eet_bstride, const float* __restrict__ deadline,
     const uint8_t* __restrict__ pending,
-    const int64_t* __restrict__ task_type,
+    const int32_t* __restrict__ task_type,
     const uint8_t* __restrict__ suffered, uint8_t* __restrict__ drop_out,
     float* __restrict__ hi_key, int64_t* __restrict__ hi_task,
     float* __restrict__ lo_key, int64_t* __restrict__ lo_task, int N, int M,
@@ -268,7 +287,7 @@ __global__ void __launch_bounds__(THREADS) map_decide_kernel(
     __syncthreads();
   }
 
-  auto one = [&](int i, float d, bool pend, int64_t type, bool suff) {
+  auto one = [&](int i, float d, bool pend, int type, bool suff) {
     const Decision r = decide<NOM, KEY, DROP, MS>(i, d, pend, type, now, mc,
                                                   eet_b, M);
     if (r.valid) {
@@ -307,15 +326,12 @@ __global__ void __launch_bounds__(THREADS) map_decide_kernel(
     const float4 d4 = __ldg(reinterpret_cast<const float4*>(deadline + t));
     const uchar4 p4 = __ldg(reinterpret_cast<const uchar4*>(pending + t));
     const uchar4 s4 = __ldg(reinterpret_cast<const uchar4*>(suffered + t));
-    const longlong2 y01 =
-        __ldg(reinterpret_cast<const longlong2*>(task_type + t));
-    const longlong2 y23 =
-        __ldg(reinterpret_cast<const longlong2*>(task_type + t + 2));
+    const int4 y4 = __ldg(reinterpret_cast<const int4*>(task_type + t));
     uchar4 o;
-    o.x = one(i, d4.x, p4.x != 0, y01.x, s4.x != 0) ? 1 : 0;
-    o.y = one(i + 1, d4.y, p4.y != 0, y01.y, s4.y != 0) ? 1 : 0;
-    o.z = one(i + 2, d4.z, p4.z != 0, y23.x, s4.z != 0) ? 1 : 0;
-    o.w = one(i + 3, d4.w, p4.w != 0, y23.y, s4.w != 0) ? 1 : 0;
+    o.x = one(i, d4.x, p4.x != 0, y4.x, s4.x != 0) ? 1 : 0;
+    o.y = one(i + 1, d4.y, p4.y != 0, y4.y, s4.y != 0) ? 1 : 0;
+    o.z = one(i + 2, d4.z, p4.z != 0, y4.z, s4.z != 0) ? 1 : 0;
+    o.w = one(i + 3, d4.w, p4.w != 0, y4.w, s4.w != 0) ? 1 : 0;
     *reinterpret_cast<uchar4*>(drop_out + t) = o;
   }
   for (int k = (int)(a1 - base) + gid; k < N; k += gstride) single(k);
@@ -369,35 +385,101 @@ __global__ void __launch_bounds__(THREADS) map_decide_kernel(
   }
 }
 
-__global__ void evict_stats_kernel(
+// Per type of one row, what evict_stats reads for each task of that type.
+struct TypeStats {
+  float min_exec;  // fastest EET over the row's machines
+  float reach;     // min over free machines of start + e (valid if any_free)
+};
+
+__global__ void __launch_bounds__(EVICT_THREADS) evict_stats_kernel(
     const float* __restrict__ start, const uint8_t* __restrict__ qfree,
     const float* __restrict__ eet, int eet_bstride,
     const float* __restrict__ deadline, const uint8_t* __restrict__ pending,
-    const int64_t* __restrict__ task_type, uint8_t* __restrict__ feas_out,
-    float* __restrict__ min_exec_out, int N, int M) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y;
-  if (i >= N) return;
-  const size_t t = (size_t)b * N + i;
-  const bool pend = pending[t] != 0;
-  const float d = deadline[t];
-  const float* row = eet + (size_t)b * eet_bstride + task_type[t] * M;
+    const int32_t* __restrict__ task_type, uint8_t* __restrict__ feas_out,
+    float* __restrict__ min_exec_out, int N, int M, int S, int split,
+    int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  TypeStats* stats = reinterpret_cast<TypeStats*>(smem);
+  uint8_t* any_free = smem + (size_t)S * sizeof(TypeStats);
+  const int part = (int)(blockIdx.x % split);
+  const int b = (int)(blockIdx.x / split);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // The row's per-type tables: warp w takes types w, w + 8, ..., its
+  // lanes machines lane, lane + 32, ... (+inf is the minima's identity;
+  // any_free says whether reach is real).
+  const float* eet_b = eet + (size_t)b * eet_bstride;
   const float* st = start + (size_t)b * M;
   const uint8_t* qf = qfree + (size_t)b * M;
-  bool any = false;
-  float min_exec = row[0];
-  for (int m = 0; m < M; ++m) {
-    const float e = row[m];
-    any = any || (pend && qf[m] != 0 && st[m] + e <= d);
-    min_exec = fminf(min_exec, e);
+  for (int s = warp; s < S; s += EVICT_THREADS / 32) {
+    const float* row = eet_b + (size_t)s * M;
+    float mn = INFINITY, reach = INFINITY;
+    bool any = false;
+    for (int m = lane; m < M; m += 32) {
+      const float e = row[m];
+      mn = fminf(mn, e);
+      if (qf[m] != 0) {
+        reach = fminf(reach, st[m] + e);
+        any = true;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mn = fminf(mn, __shfl_xor_sync(FULL, mn, off));
+      reach = fminf(reach, __shfl_xor_sync(FULL, reach, off));
+    }
+    any = __any_sync(FULL, any);
+    if (lane == 0) {
+      stats[s] = TypeStats{mn, reach};
+      any_free[s] = any ? 1 : 0;
+    }
   }
-  feas_out[t] = any ? 1 : 0;
-  min_exec_out[t] = min_exec;
+  __syncthreads();
+
+  auto one = [&](float d, bool pend, int type, float& mn) -> uint8_t {
+    const TypeStats ts = stats[type];
+    mn = ts.min_exec;
+    return pend && any_free[type] != 0 && ts.reach <= d ? 1 : 0;
+  };
+
+  // The row's tasks: groups of 4 from its first 16-byte boundary to its
+  // last, the rest one by one, spread over the row's blocks.
+  const size_t base = (size_t)b * N, end = base + N;
+  size_t a0 = end, a1 = end;  // the groups of 4 span [a0, a1)
+  if (vec) {
+    const size_t up = (base + 3) & ~(size_t)3, down = end & ~(size_t)3;
+    a0 = up < end ? up : end;
+    a1 = down > a0 ? down : a0;
+  }
+  const int head = (int)(a0 - base);
+  const int n_quad = (int)((a1 - a0) / 4);
+  const int gid = part * EVICT_THREADS + tid, gstride = split * EVICT_THREADS;
+  auto single = [&](size_t t) {
+    float mn;
+    feas_out[t] = one(deadline[t], pending[t] != 0, task_type[t], mn);
+    min_exec_out[t] = mn;
+  };
+  for (int k = gid; k < head; k += gstride) single(base + k);
+  for (int q = gid; q < n_quad; q += gstride) {
+    const size_t t = a0 + 4 * (size_t)q;
+    const float4 d4 = __ldg(reinterpret_cast<const float4*>(deadline + t));
+    const int4 y4 = __ldg(reinterpret_cast<const int4*>(task_type + t));
+    const uchar4 p4 = __ldg(reinterpret_cast<const uchar4*>(pending + t));
+    uchar4 f;
+    float4 mn;
+    f.x = one(d4.x, p4.x != 0, y4.x, mn.x);
+    f.y = one(d4.y, p4.y != 0, y4.y, mn.y);
+    f.z = one(d4.z, p4.z != 0, y4.z, mn.z);
+    f.w = one(d4.w, p4.w != 0, y4.w, mn.w);
+    *reinterpret_cast<uchar4*>(feas_out + t) = f;
+    *reinterpret_cast<float4*>(min_exec_out + t) = mn;
+  }
+  for (int k = (int)(a1 - base) + gid; k < N; k += gstride) single(base + k);
 }
 
 using MapDecideFn = void (*)(const float*, const float*, const float*, int,
                              const uint8_t*, const float*, int, const float*,
-                             const uint8_t*, const int64_t*, const uint8_t*,
+                             const uint8_t*, const int32_t*, const uint8_t*,
                              uint8_t*, float*, int64_t*, float*, int64_t*,
                              int, int, int, int);
 
@@ -483,22 +565,51 @@ extern "C" int map_decide_launch(
       &cfg, fn, (const float*)now, (const float*)start, (const float*)pdyn,
       pdyn_bstride, (const uint8_t*)qfree, (const float*)eet, eet_bstride,
       (const float*)deadline, (const uint8_t*)pending,
-      (const int64_t*)task_type, (const uint8_t*)suffered, (uint8_t*)drop,
+      (const int32_t*)task_type, (const uint8_t*)suffered, (uint8_t*)drop,
       (float*)hi_key, (int64_t*)hi_task, (float*)lo_key, (int64_t*)lo_task,
       N, M, csize, vec);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// start, qfree (B, M); eet (S, M) or per row (B, S, M) (eet_bstride 0 or
+// S * M); deadline, pending, task_type (B, N), task_type int32 in [0, S)
+// -> feas (B, N) bool, min_exec (B, N) f32.
 extern "C" int evict_stats_launch(
     const void* start, const void* qfree, const void* eet, int eet_bstride,
     const void* deadline, const void* pending, const void* task_type,
-    void* feas, void* min_exec, int B, int N, int M, void* stream) {
-  if (B < 1 || N < 1 || M < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + EVICT_THREADS - 1) / EVICT_THREADS, B);
-  evict_stats_kernel<<<grid, EVICT_THREADS, 0, (cudaStream_t)stream>>>(
+    void* feas, void* min_exec, int B, int N, int M, int S, void* stream) {
+  if (B < 1 || N < 1 || M < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const size_t smem = (size_t)S * (sizeof(TypeStats) + 1);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        evict_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // Blocks per row: enough for EVICT_BLOCKS_PER_SM per SM, no more than
+  // the row's groups of 4 fill with one group per thread.
+  const long long want = ((long long)EVICT_BLOCKS_PER_SM * n_sm + B - 1) / B;
+  const long long most = ((N + 3) / 4 + EVICT_THREADS - 1) / EVICT_THREADS;
+  const int split = (int)(want < most ? want : most);
+  const int vec = (uintptr_t)deadline % 16 == 0 &&
+                  (uintptr_t)task_type % 16 == 0 &&
+                  (uintptr_t)pending % 4 == 0 && (uintptr_t)feas % 4 == 0 &&
+                  (uintptr_t)min_exec % 16 == 0;
+  evict_stats_kernel<<<(unsigned)((long long)B * split), EVICT_THREADS, smem,
+                       (cudaStream_t)stream>>>(
       (const float*)start, (const uint8_t*)qfree, (const float*)eet,
       eet_bstride, (const float*)deadline, (const uint8_t*)pending,
-      (const int64_t*)task_type, (uint8_t*)feas, (float*)min_exec, N, M);
+      (const int32_t*)task_type, (uint8_t*)feas, (float*)min_exec, N, M, S,
+      split, vec);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,10 @@ in float32 before the product, a key that the causal mask (query position
 ``q_offset + i`` against key position j) or the ``kv_len`` bound excludes
 scores the finite ``-1e30``, and the output divides by ``max(l, 1e-30)``.
 A row with no valid key therefore gives the mean of V over the Sk keys,
-where XLA's ``-inf`` gives NaN. Everything is computed in float32.
+where XLA's ``-inf`` gives NaN. Scores, the softmax and the sums are
+float32; on the bf16 route the kernel rounds P to bf16 before P V (the
+tensor cores' operand type), and the plain version computes everything in
+float32.
 
 The wrapper runs :func:`flash_attention_plain` when every input lies on
 the CPU, and otherwise launches the CUDA kernel (``csrc/flash_attention.cu``)

@@ -13,7 +13,9 @@ replicates:
     walk (``core/dispatch/base.py::sequential_balance``).
 
 The EET table of the first two is shared by the batch, (S, M), or given
-per row, (B, S, M), as for the federation's site views.
+per row, (B, S, M), as for the federation's site views. Their task types
+are int32, as the reference keeps them (the engine builds that copy once
+per simulation).
 
 Each wrapper runs its plain PyTorch version when every input lies on the
 CPU, and otherwise launches its CUDA kernel (``csrc/map_fused.cu``,
@@ -62,7 +64,7 @@ def _lib(name: str):
                 [PTR] * 2 + [INT] + [PTR] * 9 + [INT] * 6 + [PTR]
             lib.map_decide_launch.restype = INT
             lib.evict_stats_launch.argtypes = [PTR] * 3 + [INT] + \
-                [PTR] * 5 + [INT] * 3 + [PTR]
+                [PTR] * 5 + [INT] * 4 + [PTR]
             lib.evict_stats_launch.restype = INT
         else:
             lib.balance_scan_launch.argtypes = [PTR] * 5 + [INT] * 3 + [PTR]
@@ -169,7 +171,8 @@ def map_decide_plain(now, start, p_dyn, qfree, eet, deadline, pending,
 
     now (B,) f32; start (B, M) f32; p_dyn (M,) or (B, M) f32; qfree (B, M)
     bool; eet (S, M) or (B, S, M) f32; deadline (B, N) f32; pending,
-    suffered_task (B, N) bool; task_type (B, N) int64. Returns ``(drop
+    suffered_task (B, N) bool; task_type (B, N) int32 (the plain versions
+    take int64 as well). Returns ``(drop
     (B, N) bool, hi_key (B, M) f32, hi_task (B, M) int64, lo_key,
     lo_task)``.
     """
@@ -244,7 +247,7 @@ def map_decide(now, start, p_dyn, qfree, eet, deadline, pending, task_type,
     B, N = deadline.shape
     M = eet.shape[-1]
     eet_shape, eet_bstride = _eet_shape(eet, B)
-    f32, b8, i64 = torch.float32, torch.bool, torch.int64
+    f32, b8, i32, i64 = torch.float32, torch.bool, torch.int32, torch.int64
     pdyn_shape = (M,) if p_dyn.dim() == 1 else (B, M)
     ptrs = [
         check(now, "now", f32, (B,), dev),
@@ -254,7 +257,7 @@ def map_decide(now, start, p_dyn, qfree, eet, deadline, pending, task_type,
         check(eet, "eet", f32, eet_shape, dev),
         check(deadline, "deadline", f32, (B, N), dev),
         check(pending, "pending", b8, (B, N), dev),
-        check(task_type, "task_type", i64, (B, N), dev),
+        check(task_type, "task_type", i32, (B, N), dev),
         check(suffered_task, "suffered_task", b8, (B, N), dev),
     ]
     drop = torch.empty((B, N), dtype=b8, device=dev)
@@ -277,14 +280,15 @@ def map_decide(now, start, p_dyn, qfree, eet, deadline, pending, task_type,
 def evict_stats(start, qfree, eet, deadline, pending, task_type):
     """Per-task eviction-planner stats over the pre-eviction grid.
 
-    Arguments and results as :func:`evict_stats_plain`.
+    Arguments and results as :func:`evict_stats_plain`; on the card
+    ``task_type`` is int32 with entries in ``[0, S)`` (not checked).
     """
     args = (start, qfree, eet, deadline, pending, task_type)
     if on_cpu(*args):
         return evict_stats_plain(*args)
     dev = cuda_device(start)
     B, N = deadline.shape
-    M = eet.shape[-1]
+    S, M = eet.shape[-2:]
     eet_shape, eet_bstride = _eet_shape(eet, B)
     ptrs = [
         check(start, "start", torch.float32, (B, M), dev),
@@ -292,13 +296,13 @@ def evict_stats(start, qfree, eet, deadline, pending, task_type):
         check(eet, "eet", torch.float32, eet_shape, dev),
         check(deadline, "deadline", torch.float32, (B, N), dev),
         check(pending, "pending", torch.bool, (B, N), dev),
-        check(task_type, "task_type", torch.int64, (B, N), dev),
+        check(task_type, "task_type", torch.int32, (B, N), dev),
     ]
     feas = torch.empty((B, N), dtype=torch.bool, device=dev)
     min_exec = torch.empty((B, N), dtype=torch.float32, device=dev)
     rc = _lib("map_fused").evict_stats_launch(
         *ptrs[:3], eet_bstride, *ptrs[3:], feas.data_ptr(),
-        min_exec.data_ptr(), B, N, M, stream_ptr(dev))
+        min_exec.data_ptr(), B, N, M, S, stream_ptr(dev))
     raise_on(rc, "evict_stats")
     LAUNCHES["evict_stats"] += 1
     return feas, min_exec

@@ -96,7 +96,9 @@ class Scenario:
 
     def _trace(self, arrival, task_type, exec_actual, eet, dev) -> Trace:
         arrival = torch.as_tensor(arrival, device=dev)
-        task_type = torch.as_tensor(task_type, device=dev)
+        # drawn as int64 (that draw fixes the stream), kept as int32
+        task_type = torch.as_tensor(np.asarray(task_type, np.int32),
+                                    device=dev)
         eet_t = torch.as_tensor(np.asarray(eet, np.float32), device=dev)
         return Trace(arrival, task_type,
                      self.deadline.deadlines(arrival, task_type, eet_t),

@@ -52,7 +52,8 @@ def kernel_inputs(B, N, M, S, seed=0):
         deadline=(now[:, None] + r.choice(np.arange(-4.0, 12.0, 0.5),
                                           (B, N))).astype(f32),
         pending=r.random((B, N)) < 0.8,
-        task_type=r.integers(0, S, (B, N)).astype(np.int64),
+        # drawn as int64, kept as int32 (the type the kernels take)
+        task_type=r.integers(0, S, (B, N)).astype(np.int32),
         suffered=r.random((B, N)) < 0.3,
     )
 
@@ -89,16 +90,17 @@ def test_cuda_kernels_match_plain_on_card(M):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("F", [8, 37])
+@pytest.mark.parametrize("F", [1, 8, 32, 37, 1024])
 def test_balance_scan_matches_plain_on_card(F):
-    """The balance walk equals its plain version on the card: sparse to
-    full admissions, tied loads (replicate 0), dead sites at +1,000,000,
-    N not a multiple of 32, F above one warp's lanes."""
+    """The balance walk equals its plain version on the card: no, sparse
+    and full admissions, tied loads (replicate 0), dead sites at
+    +1,000,000, N off the 16-task vector grain, F from one site to 32 per
+    lane."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     r = np.random.default_rng(F)
     B, N = 5, 1001
-    for density in (0.01, 0.5, 1.0):
+    for density in (0.0, 0.01, 0.5, 1.0):
         load0 = r.integers(0, 6, (B, F)) \
             + 1_000_000 * (r.random((B, F)) < 0.25)
         load0[0] = 3
@@ -110,6 +112,86 @@ def test_balance_scan_matches_plain_on_card(F):
         got = map_fused.balance_scan(*args)
         torch.cuda.synchronize()
         assert torch.equal(got, map_fused.balance_scan_plain(*args)), density
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loads", ["dead", "wide"])
+@pytest.mark.parametrize("B,N,F", [(3, 10_000, 8), (4, 4097, 37),
+                                   (2, 9000, 1024), (150, 4000, 8)])
+def test_balance_scan_tiles_and_key_widths_on_card(B, N, F, loads):
+    """More new tasks than one 4096-task tile (every task new, and half of
+    them), the federated path's shape, and both walks: loads with dead
+    sites (packed 32-bit keys) and loads from 2^22 up (64-bit pairs)."""
+    needs_card()
+    r = np.random.default_rng(N + F)
+    base = (1 << 22) if loads == "wide" else 0
+    for density in (0.5, 1.0):
+        load0 = base + r.integers(0, 6, (B, F)) \
+            + 1_000_000 * (r.random((B, F)) < 0.25)
+        args = [torch.as_tensor(a, device="cuda") for a in (
+            load0.astype(np.int64), r.random((B, N)) < density,
+            r.random((B, N)) < 0.5, r.integers(-1, F + 1, (B, N)))]
+        got = map_fused.balance_scan(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, map_fused.balance_scan_plain(*args)), density
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_row", [False, True], ids=["shared", "per_row"])
+@pytest.mark.parametrize("M", [1, 3, 4, 20, 37])
+def test_evict_stats_edges_on_card(M, per_row):
+    """evict_stats bit for bit with a row without a free machine, deadlines
+    exactly start + e of a free machine and deadlines of +inf, on shared
+    and per-row tables (BIG columns), N off the 4-task grain, and on
+    unaligned task arrays (one task at a time)."""
+    needs_card()
+    B, N, S = 150, 2001, 4
+    x = kernel_inputs(B, N + 1, M, S, seed=M)
+    r = np.random.default_rng(M)
+    x["qfree"][0] = False
+    if per_row:
+        eet = np.round(r.uniform(0.5, 5.0, (B, S, M)) * 8) / 8
+        eet[:, :, M // 2:] = 1e30
+        x["eet"] = eet.astype(np.float32)
+    e = np.broadcast_to(x["eet"], (B, S, M))
+    m = r.integers(0, M, (B, N + 1))
+    rows = np.arange(B)[:, None]
+    exact = x["start"][rows, m] + e[rows, x["task_type"], m]
+    pick = r.random((B, N + 1))
+    d = np.where(pick < 0.3, exact, x["deadline"])
+    x["deadline"] = np.where(pick > 0.9, np.inf, d).astype(np.float32)
+    t = {k: torch.as_tensor(v, device="cuda") for k, v in x.items()}
+    task = {k: t[k][:, :N].contiguous()
+            for k in ("deadline", "pending", "task_type")}
+    shifted = {k: t[k].reshape(-1)[1:1 + B * N].view(B, N)
+               for k in ("deadline", "pending", "task_type")}
+    for arrays in (task, shifted):
+        es = (t["start"], t["qfree"], t["eet"], arrays["deadline"],
+              arrays["pending"], arrays["task_type"])
+        got = map_fused.evict_stats(*es)
+        torch.cuda.synchronize()
+        for g, w in zip(got, map_fused.evict_stats_plain(*es)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_scheduling_kernels_take_int32_types_on_card():
+    """On the card map_decide and evict_stats take int32 task types, the
+    type the port keeps, and refuse int64 ones rather than cast."""
+    needs_card()
+    t = {k: torch.as_tensor(v, device="cuda")
+         for k, v in kernel_inputs(2, 64, 4, 4).items()}
+    assert t["task_type"].dtype == torch.int32
+    wide = t["task_type"].to(torch.int64)
+    with pytest.raises(TypeError, match="task_type"):
+        map_fused.evict_stats(t["start"], t["qfree"], t["eet"],
+                              t["deadline"], t["pending"], wide)
+    with pytest.raises(TypeError, match="task_type"):
+        map_fused.map_decide(
+            t["now"], t["start"], t["p_dyn"], t["qfree"], t["eet"],
+            t["deadline"], t["pending"], wide, t["suffered"],
+            nominator="min_completion", phase2_key="value",
+            drop_rule="stale")
 
 
 @pytest.mark.cuda
