@@ -4,6 +4,8 @@
     python3 chip_smoke.py                # the full check, on one card
     python3 chip_smoke.py --reps 10      # a shorter flat path
     python3 chip_smoke.py --fed-reps 10  # a shorter federated path
+                                         # (the observed one takes
+                                         # min(fed_reps, 10) replicates)
     python3 chip_smoke.py --kernels-only # phases 1-5, then stop
 
 The port's float32 products stay in float32 (TF32 is switched off for
@@ -74,10 +76,12 @@ raises, so the script exits non-zero and prints no result line:
               shape, and decode attention with 2, 4 and 8 query heads per
               kv head;
   6. profile  where one batched event's time goes: the first 64
-              iterations of the flat FELARE and phase1 ELARE sweeps and of
-              the federated FELARE + fair_spill sweep on paper_x2 and
-              paper_x8 under torch.profiler (wall vs device-busy time,
-              kernels per iteration, which must not grow with the sites);
+              iterations of the flat FELARE and phase1 ELARE sweeps, of
+              the flat FELARE sweep with all four observers and with
+              task_log alone, and of the federated FELARE + fair_spill
+              sweep on paper_x2 and paper_x8 under torch.profiler (wall vs
+              device-busy time, kernels per iteration, which must not grow
+              with the sites);
   7. serve    zamba2-2.7b at its published width (54 layers, d_model 2560,
               bf16, random weights from torch.Generator seed 0) serves 8
               requests of 1024 prompt tokens (numpy seed 0) for 64 greedy
@@ -104,7 +108,9 @@ raises, so the script exits non-zero and prints no result line:
               launch counts, zeroed just before, must show every kernel
               ran on every batched event;
  10. parity   the same traces through the plain path on the card give
-              identical counters and makespans, and a 2 x 2 subset
+              identical counters and makespans (FELARE's plain run
+              carries the observers and is held, Metrics and all, in
+              phase 15), and a 2 x 2 subset
               through the port on the CPU gives identical counters with
               energies within rel 1e-5 (sums over machines run in another
               order there);
@@ -116,7 +122,26 @@ raises, so the script exits non-zero and prints no result line:
               once per batched event, not once per site;
  12. fed_parity  the plain path on the card gives identical counters and
               makespans, and a 2 x 2 subset (each trace cut to its first
-              1000 tasks) gives the same counters on the CPU.
+              1000 tasks) gives the same counters on the CPU;
+ 13. observe  the flat sweep's FELARE run again, on the fused kernels with
+              all four observers (task_log, timeline, fairness_trajectory,
+              energy_budget unset): Metrics identical to the unobserved
+              run, map_decide and evict_stats on every batched event, the
+              observers' outputs consistent with the Metrics (final
+              statuses, the timeline's last bucket); then on a battery of
+              half the mean total energy, which must halt replicates and
+              raise the share of their admitted tasks cancelled; wall
+              seconds observed against unobserved;
+ 14. observe_fed  paper_x8 FELARE + fair_spill on the fused kernels
+              (balance_scan on the card) with task_log and the per-site
+              timeline, on the first min(--fed-reps, 10) replicates of the
+              federated traces, each cut to its first 1000 tasks: every
+              kernel on every batched event, the final task_log.site equal
+              to the engine's final SimState.site;
+ 15. observe_parity  the plain path on the card gives every aux leaf of
+              phases 13 and 14 identical (float32 times included), and a
+              2 x 2 subset of phase 13 on the CPU gives identical task_log
+              and fairness_trajectory, energies within rel 1e-5.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, one
 ``{"kernels": [...]}`` line (a row with ``by_shape`` gives each path
@@ -152,6 +177,13 @@ FED_TASKS = 4000
 TIER_RATES = (12.0, 24.0)                        # tiered_x4, total tasks/s
 TIER_REPS, TIER_TASKS = 10, 2000
 CPU_SUBSET_TASKS = 1000
+# The observed paths: every built-in observer on the flat sweep (the
+# energy budget unset), and paper_x8 on the first 10 replicates of the
+# federated traces, each cut to its first 1000 tasks (an iteration costs
+# the host about the same at any batch, so the length of the traces sets
+# the phase's time).
+OBSERVERS = ("task_log", "timeline", "fairness_trajectory", "energy_budget")
+OBS_FED_REPS, OBS_FED_TASKS = 10, 1000
 # balance_scan: the federated path's shape, then more new tasks than one
 # 4096-task tile of the kernel, and N off the 16-task vector grain.
 BALANCE_SHAPES = (dict(B=150, N=FED_TASKS, F=8), dict(B=8, N=10_000, F=32),
@@ -838,7 +870,9 @@ def same_counts(a, b, what: str, energy_rel=None) -> None:
                 f"{what}: {k} off by rel {float(rel.max())}")
 
 
-def run_main_path(device, reps: int, n_tasks: int) -> dict:
+def run_main_path(device, reps: int, n_tasks: int) -> tuple:
+    """The flat sweep on the kernels, then its parity runs; returns the
+    launch counts, the traces and the fused sweep's result."""
     import numpy as np
 
     from repro_torch import scenarios
@@ -873,12 +907,16 @@ def run_main_path(device, reps: int, n_tasks: int) -> dict:
         require(counts[k] == v and (v > 0 or k == "balance_scan"),
                 f"{k}: {counts[k]} launches, {v} batched events")
 
-    # -- parity: plain path on the card, same traces ----------------------
+    # -- parity: plain path on the card, same traces (FELARE's plain run
+    # carries the observers and is held in observe_parity) ----------------
+    others = [i for i, h in enumerate(fused.heuristics) if h != "FELARE"]
     plain = run_sweep(SweepSpec(system="paper", rates=RATES, reps=reps,
-                                n_tasks=n_tasks,
-                                heuristics=fused.heuristics, seed=0),
+                                n_tasks=n_tasks, seed=0,
+                                heuristics=tuple(fused.heuristics[i]
+                                                 for i in others)),
                       traces=traces, device=device)
-    same_counts(res_fused.metrics, plain.metrics, "fused vs plain (card)")
+    same_counts(Metrics(*(x[others] for x in res_fused.metrics)),
+                plain.metrics, "fused vs plain (card)")
     same_counts(res_p1.metrics, Metrics(*(x[:1] for x in plain.metrics)),
                 "phase1 vs plain (card)")
 
@@ -890,12 +928,13 @@ def run_main_path(device, reps: int, n_tasks: int) -> dict:
                     traces=sub, device="cpu")
     card_sub = Metrics(*(x[:, :2, :2] for x in res_fused.metrics))
     same_counts(cpu.metrics, card_sub, "card vs CPU subset", energy_rel=1e-5)
-    emit("parity", plain_on_card="identical counters and makespans",
+    emit("parity", plain_on_card="identical counters and makespans "
+                                 "(FELARE: observe_parity)",
          cpu_subset="identical counters, energies within rel 1e-5",
          plain_seconds={h: plain.run_info[h]["seconds"]
                         for h in plain.heuristics},
          cpu_cells=int(np.prod(cpu.metrics.makespan.shape)))
-    return counts
+    return counts, traces, res_fused
 
 
 def run_federated_path(device, reps: int) -> dict:
@@ -904,7 +943,9 @@ def run_federated_path(device, reps: int) -> dict:
     fold) with FELARE + least_queued. Each run's launch counts, zeroed
     just before it, must show one map_decide and one balance_scan per
     batched event, whatever the site count. Then the parity of the
-    FELARE runs with the plain path on the card and with the CPU."""
+    FELARE runs with the plain path on the card and with the CPU.
+    Returns the launch counts in all and by system, and the paper_x8
+    traces."""
     from repro_torch import scenarios
     from repro_torch.core.types import Trace
     from repro_torch.experiments import SweepSpec, run_sweep
@@ -973,7 +1014,257 @@ def run_federated_path(device, reps: int) -> dict:
                            "tasks": CPU_SUBSET_TASKS},
          plain_seconds=plain_seconds,
          cpu_seconds=cpu.run_info["FELARE"]["seconds"])
-    return total, by_system
+    return total, by_system, traces["paper_x8"]
+
+
+# --------------------------------------------------------------------------
+# Observers on the kernel path
+# --------------------------------------------------------------------------
+def check_observed(what: str, metrics, aux: dict) -> None:
+    """What the observers report agrees with the Metrics of the same run:
+    the task log's final statuses count the Metrics' completions, misses
+    and cancellations, the timeline's last bucket holds the final
+    counters, every started task has a machine, rates lie in [0, 1]."""
+    import numpy as np
+
+    log = aux.get("task_log")
+    if log is not None:
+        status = log["status"]
+        for code, k in ((4, "completed_by_type"), (5, "missed_by_type"),
+                        (6, "cancelled_by_type")):
+            require(np.array_equal((status == code).sum(-1),
+                                   getattr(metrics, k).sum(-1)),
+                    f"{what}: task_log statuses {code} != {k}")
+        started = log["start_time"] >= 0
+        require(bool(np.all((log["machine"] >= 0) == started)),
+                f"{what}: a started task without a machine, or the reverse")
+        require(bool(np.all(log["end_time"][started]
+                            >= log["start_time"][started])),
+                f"{what}: a task ended before it started")
+    tl = aux.get("timeline")
+    if tl is not None:
+        require(np.array_equal(tl["completed"][..., -1, :],
+                               metrics.completed_by_type)
+                and np.array_equal(tl["arrived"][..., -1, :],
+                                   metrics.arrived_by_type),
+                f"{what}: the timeline's last bucket is not the final state")
+        require(bool(np.all(np.diff(tl["e_dyn"], axis=-1) >= 0)),
+                f"{what}: cumulative dynamic energy falls")
+    ft = aux.get("fairness_trajectory")
+    if ft is not None:
+        require(bool(np.all((ft["cr"] >= 0) & (ft["cr"] <= 1))),
+                f"{what}: a completion rate outside [0, 1]")
+
+
+def same_aux(a: dict, b: dict, what: str, energy_rel=None) -> None:
+    """Every aux leaf identical; with ``energy_rel``, float leaves that
+    carry energies within that relative distance instead."""
+    import numpy as np
+
+    require(set(a) == set(b), f"{what}: observers differ")
+    for name in a:
+        require(set(a[name]) == set(b[name]), f"{what}: {name} leaves differ")
+        for leaf, x in a[name].items():
+            y = b[name][leaf]
+            if energy_rel is not None and leaf.startswith(("e_", "site_e_")):
+                x64 = np.asarray(x, np.float64)
+                y64 = np.asarray(y, np.float64)
+                rel = np.abs(x64 - y64) / np.maximum(np.abs(y64), 1e-30)
+                require(bool(np.all(rel <= energy_rel)),
+                        f"{what}: {name}.{leaf} off by rel {rel.max()}")
+            else:
+                require(x.dtype == y.dtype and np.array_equal(x, y),
+                        f"{what}: {name}.{leaf} differs")
+
+
+def run_observed_path(device, traces, res_fused, n_tasks: int) -> dict:
+    """The flat paper-scale FELARE sweep on the kernels with all four
+    observers (the energy budget unset): the Metrics must be the
+    unobserved run's and the launch counts must show both map kernels on
+    every batched event. Then once more with a battery of half the mean
+    total energy, which must halt replicates and raise the share of
+    their admitted tasks cancelled. Then the plain path on the card
+    (every aux leaf identical) and a 2 x 2 subset on the CPU. Returns the
+    launch counts of the two observed runs and what the parity runs
+    found."""
+    import numpy as np
+
+    from repro_torch.core import observe
+    from repro_torch.core.types import Metrics, Trace
+    from repro_torch.experiments import SweepSpec, run_sweep
+
+    def spec(observers, fused=True, rates=RATES, reps=None):
+        return SweepSpec(system="paper", rates=rates,
+                         reps=reps or traces.arrival.shape[1],
+                         n_tasks=n_tasks, heuristics=("FELARE",), seed=0,
+                         use_fused_map=fused, observers=observers)
+
+    h = res_fused.heuristics.index("FELARE")
+    unobserved = Metrics(*(x[h:h + 1] for x in res_fused.metrics))
+    reset_counts()
+    obs = run_sweep(spec(OBSERVERS), traces=traces, device=device)
+    counts = read_counts()
+    summarize(obs, "observed fused_map", phase="observe")
+    for a, b, k in zip(obs.metrics, unobserved, Metrics._fields):
+        require(np.array_equal(a, b), f"observed vs unobserved: {k} differs")
+    steps = obs.run_info["FELARE"]["loop_iterations"]
+    expect = {"map_decide": steps, "evict_stats": steps, "phase1_map": 0,
+              "balance_scan": 0}
+    require(steps > 0, "observed: no batched event")
+    for k, v in expect.items():
+        require(counts[k] == v, f"observed: {k}: {counts[k]} launches, "
+                                f"{v} batched events")
+    check_observed("observed", obs.metrics, obs.aux)
+    require(not bool(np.any(obs.aux["energy_budget"]["exhausted"])),
+            "an unset budget halted a replicate")
+
+    # -- the same traces on a battery of half the mean total energy --------
+    total = obs.metrics.energy_dynamic + obs.metrics.energy_idle
+    capacity = 0.5 * float(np.mean(total))
+    budget = observe.EnergyBudget(capacity=capacity)
+    reset_counts()
+    cut = run_sweep(spec((budget, "task_log")), traces=traces, device=device)
+    budget_counts = read_counts()
+    check_observed("budget", cut.metrics, cut.aux)
+    eb = cut.aux["energy_budget"]
+    halted = eb["exhausted"]
+    m = cut.metrics
+    require(bool(np.any(halted)), "budget: no replicate halted")
+    # A halted replicate admits no more arrivals, which then count neither
+    # as arrived nor as cancelled: its share of admitted tasks cancelled
+    # is what the halt raises.
+    def cancelled_share(metrics):
+        c = metrics.cancelled_by_type.sum(-1)[halted]
+        return float(c.sum() / metrics.arrived_by_type.sum(-1)[halted].sum())
+
+    cancelled = (int(m.cancelled_by_type.sum()),
+                 int(obs.metrics.cancelled_by_type.sum()))
+    share = (cancelled_share(m), cancelled_share(obs.metrics))
+    require(share[0] > share[1],
+            f"budget: the halted replicates cancelled {share[0]} of their "
+            f"admitted tasks, {share[1]} unbudgeted")
+    require(np.array_equal(m.completed_by_type + m.missed_by_type
+                           + m.cancelled_by_type, m.arrived_by_type),
+            "budget: admitted tasks not conserved")
+    require(bool(np.all(eb["t_exhausted"][halted] <= m.makespan[halted])),
+            "budget: exhausted after the last event")
+    t_ex = eb["t_exhausted"][halted]
+    emit("observe", run="observed fused_map",
+         observers=[o if isinstance(o, str) else o.name for o in OBSERVERS],
+         launches=counts, expected=expect,
+         seconds=obs.run_info["FELARE"]["seconds"],
+         unobserved_seconds=res_fused.run_info["FELARE"]["seconds"],
+         loop_iterations=steps,
+         unobserved_loop_iterations=res_fused.run_info["FELARE"][
+             "loop_iterations"],
+         metrics="identical to the unobserved run")
+    emit("observe", run="energy_budget", capacity=capacity,
+         replicates=int(halted.size), halted=int(halted.sum()),
+         t_exhausted={"min": float(t_ex.min()),
+                      "median": float(np.median(t_ex)),
+                      "max": float(t_ex.max())},
+         cancelled=cancelled[0], unbudgeted_cancelled=cancelled[1],
+         halted_cancelled_share=share[0],
+         unbudgeted_cancelled_share=share[1],
+         completed=int(m.completed_by_type.sum()),
+         unbudgeted_completed=int(obs.metrics.completed_by_type.sum()),
+         seconds=cut.run_info["FELARE"]["seconds"],
+         loop_iterations=cut.run_info["FELARE"]["loop_iterations"],
+         launches=budget_counts)
+
+    # -- parity: the plain path on the card, every aux leaf identical, and
+    # the Metrics (this is the flat FELARE run's fused-vs-plain check) ----
+    plain = run_sweep(spec(OBSERVERS, fused=False), traces=traces,
+                      device=device)
+    for a, b, k in zip(obs.metrics, plain.metrics, Metrics._fields):
+        require(np.array_equal(a, b), f"observed fused vs plain: {k}")
+    same_aux(obs.aux, plain.aux, "observed fused vs plain (card)")
+
+    # -- parity: a 2 x 2 subset through the port on the CPU ----------------
+    sub = Trace(*(x[:2, :2].cpu() for x in traces))
+    cpu = run_sweep(spec(OBSERVERS, rates=RATES[:2], reps=2), traces=sub,
+                    device="cpu")
+    card_sub = observe.tree_map(lambda x: x[:, :2, :2], obs.aux)
+    same_aux(cpu.aux, card_sub, "observed card vs CPU subset",
+             energy_rel=1e-5)
+    parity = dict(
+        flat_plain_on_card="every aux leaf and Metrics field identical "
+                           "(FELARE, all four observers)",
+        flat_cpu_subset="task_log and fairness_trajectory identical, "
+                        "energies within rel 1e-5",
+        flat_plain_seconds=plain.run_info["FELARE"]["seconds"],
+        flat_cpu_seconds=cpu.run_info["FELARE"]["seconds"])
+    return {k: counts[k] + budget_counts[k] for k in counts}, parity
+
+
+def run_observed_federation(device, traces, reps: int) -> dict:
+    """paper_x8 FELARE + fair_spill on the kernels (balance_scan on the
+    card) with ``task_log`` and the per-site timeline, on the first
+    ``reps`` replicates of the federated path's traces, each cut to its
+    first ``OBS_FED_TASKS`` tasks. The launch counts must show all three
+    kernels on every batched event, the final ``task_log.site`` must be
+    the engine's final ``SimState.site``, and the plain path on the card
+    must give every aux leaf identical. Returns the launch counts and
+    what the parity run found."""
+    import numpy as np
+    import torch
+
+    from repro_torch import scenarios
+    from repro_torch.core import dispatch, engine, observe, policy
+    from repro_torch.core.types import Trace
+    from repro_torch.experiments import SweepSpec, run_sweep
+
+    observers = ("task_log", observe.Timeline(per_site=True))
+    sub = Trace(*(x[:, :reps, :OBS_FED_TASKS] for x in traces))
+    reset_counts()
+    res = run_sweep(SweepSpec(
+        system="paper_x8", rates=FED_RATES, reps=reps, n_tasks=OBS_FED_TASKS,
+        heuristics=("FELARE",), seed=0, use_fused_map=True,
+        dispatcher="fair_spill", observers=observers), traces=sub,
+        device=device)
+    counts = read_counts()
+    summarize(res, "paper_x8 FELARE fair_spill observed",
+              phase="observe_fed")
+    steps = res.run_info["FELARE"]["loop_iterations"]
+    expect = {"map_decide": steps, "balance_scan": steps,
+              "evict_stats": steps, "phase1_map": 0}
+    require(steps > 0, "observed federation: no batched event")
+    for k, v in expect.items():
+        require(counts[k] == v, f"observed federation: {k}: {counts[k]} "
+                                f"launches, {v} expected")
+    check_observed("observed paper_x8", res.metrics, res.aux)
+
+    # -- the plain path on the card, its final state kept ------------------
+    system = scenarios.get_fleet("paper_x8").build()
+    flat = Trace(*(x.reshape((-1,) + x.shape[2:]) for x in sub))
+    t0 = time.perf_counter()
+    run = engine._make_loop(
+        policy.get("FELARE"), system.as_torch(device),
+        queue_size=system.queue_size,
+        fairness_factor=float(system.fairness_factor),
+        dispatcher=dispatch.resolve("fair_spill"),
+        site_of_machine=system.site_of_machine, observers=observers)
+    st, aux = run(engine._to_device(flat, device))
+    torch.cuda.synchronize()
+    plain_seconds = time.perf_counter() - t0
+    plain = observe.tree_map(
+        lambda x: x.cpu().numpy().reshape(
+            (1, len(FED_RATES), reps) + tuple(x.shape[1:])), aux)
+    same_aux(res.aux, plain, "observed paper_x8 fused vs plain (card)")
+    site = res.aux["task_log"]["site"].reshape(-1, OBS_FED_TASKS)
+    require(np.array_equal(site, st.site.cpu().numpy()),
+            "task_log.site is not the engine's final SimState.site")
+    emit("observe_fed", run="paper_x8 FELARE fair_spill observed",
+         observers=["task_log", "timeline (per_site)"], reps=reps,
+         tasks=OBS_FED_TASKS,
+         launches=counts, expected=expect,
+         seconds=res.run_info["FELARE"]["seconds"],
+         loop_iterations=steps, plain_seconds=plain_seconds,
+         sites=int(res.aux["timeline"]["site_qlen"].shape[-1]),
+         final_site="task_log.site equals SimState.site")
+    return counts, {"fed_plain_on_card": "every aux leaf identical "
+                                         "(task_log, per-site timeline)",
+                    "fed_plain_seconds": plain_seconds}
 
 
 # --------------------------------------------------------------------------
@@ -1295,7 +1586,9 @@ def profile_sim(label: str, sim, flat, steps: int) -> float:
 def profile_main_path(device, reps: int, n_tasks: int, fed_reps: int,
                       steps: int = 64):
     """Where the time of one batched event goes: the first ``steps``
-    iterations of the flat fused FELARE and phase1 ELARE sweeps, then of
+    iterations of the flat fused FELARE and phase1 ELARE sweeps, of the
+    flat fused FELARE sweep with all four observers and with ``task_log``
+    alone, then of
     the federated fused FELARE + fair_spill sweep on paper_x2 and on
     paper_x8, whose kernels per iteration must agree within 2."""
     from repro_torch import scenarios
@@ -1305,13 +1598,16 @@ def profile_main_path(device, reps: int, n_tasks: int, fed_reps: int,
     traces = scenarios.DEFAULT.stack(0, RATES, reps, n_tasks, system.eet,
                                      device=device)
     flat = type(traces)(*(x.reshape((-1,) + x.shape[2:]) for x in traces))
-    for label, pol in (("FELARE fused_map",
-                        policy.with_fused_map("FELARE")),
-                       ("ELARE fused_phase1",
-                        policy.with_fused_phase1("ELARE"))):
+    for label, pol, observers in (
+            ("FELARE fused_map", policy.with_fused_map("FELARE"), ()),
+            ("ELARE fused_phase1", policy.with_fused_phase1("ELARE"), ()),
+            ("FELARE fused_map observed", policy.with_fused_map("FELARE"),
+             OBSERVERS),
+            ("FELARE fused_map task_log", policy.with_fused_map("FELARE"),
+             ("task_log",))):
         sim = engine.make_simulator(
             pol, system.as_torch(device), queue_size=system.queue_size,
-            max_steps=steps)
+            max_steps=steps, observers=observers)
         profile_sim(label, sim, flat, steps)
 
     per_iteration = {}
@@ -1822,9 +2118,18 @@ def main(argv=None) -> int:
     if args.fed_reps != 30:
         emit("cut", fed_reps=args.fed_reps,
              note="federated path run below paper scale (30 reps)")
-    flat = run_main_path(device, args.reps, args.tasks)
-    fed, fed_by_system = run_federated_path(device, args.fed_reps)
-    paths = {"flat": flat, "federated": fed, "serve": serve}
+    flat, flat_traces, flat_res = run_main_path(device, args.reps,
+                                                args.tasks)
+    fed, fed_by_system, x8_traces = run_federated_path(device,
+                                                       args.fed_reps)
+    observed, parity = run_observed_path(device, flat_traces, flat_res,
+                                         args.tasks)
+    obs_fed, fed_parity = run_observed_federation(
+        device, x8_traces, min(args.fed_reps, OBS_FED_REPS))
+    emit("observe_parity", **parity, **fed_parity)
+    paths = {"flat": flat, "federated": fed, "serve": serve,
+             "observed": {k: observed[k] + obs_fed.get(k, 0)
+                          for k in observed}}
     shape_counts = {"flat": flat, **fed_by_system}
     for row in rows:
         counters = row.get("counters", [row["name"]])

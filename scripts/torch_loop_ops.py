@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Count the PyTorch ops one batched iteration of the port's event loop
+dispatches, with and without engine observers, on the CPU.
+
+    PYTHONPATH=src python scripts/torch_loop_ops.py
+
+Every op that reaches the dispatcher is counted, views and metadata
+queries excepted, over 64 iterations of the first steps of a sweep (two
+rates x two replicates of 300 tasks) and divided by 64 after the
+simulator's set-up (the same call at ``max_steps=0``) is taken off. On
+the card most such ops launch one kernel, so the count predicts the
+kernels per iteration that ``chip_smoke.py``'s ``profile`` phase
+measures; it is a prediction, not a device measurement.
+"""
+from __future__ import annotations
+
+import collections
+
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch import scenarios
+from repro_torch.core import dispatch, engine, observe, policy
+
+STEPS = 64
+NOT_COUNTED = {
+    "view", "_unsafe_view", "expand", "reshape", "slice", "select",
+    "unsqueeze", "squeeze", "permute", "transpose", "t", "alias",
+    "as_strided", "detach", "lift_fresh", "unbind", "split", "narrow",
+    "diagonal", "_local_scalar_dense", "item", "size", "stride",
+}
+ALL_FOUR = ("task_log", "timeline", "fairness_trajectory", "energy_budget")
+
+
+class _Count(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name not in NOT_COUNTED and not name.startswith("is_"):
+            self.ops[name] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def ops_per_iteration(system: str, select_fn, observers=(),
+                      dispatcher=None) -> float:
+    spec = scenarios.get_fleet(system).build()
+    F = spec.n_sites
+    traces = scenarios.DEFAULT.stack(0, (2.0 * F, 8.0 * F), 2, 300,
+                                     spec.eet, device="cpu")
+    flat = type(traces)(*(x.reshape((-1,) + x.shape[2:]) for x in traces))
+    counts = []
+    for steps in (STEPS, 0):
+        sim = engine.make_simulator(
+            select_fn, spec.as_torch("cpu"), queue_size=spec.queue_size,
+            max_steps=steps, observers=observers, dispatcher=dispatcher,
+            site_of_machine=spec.site_of_machine)
+        mode = _Count()
+        with mode:
+            sim(flat)
+        counts.append(sum(mode.ops.values()))
+    return (counts[0] - counts[1]) / STEPS
+
+
+def main() -> None:
+    felare = policy.with_fused_map("FELARE")
+    fair_spill = dispatch.with_fused_balance("fair_spill")
+    runs = (
+        ("flat FELARE", "paper", felare, (), None),
+        ("flat FELARE, all four observers", "paper", felare, ALL_FOUR,
+         None),
+        ("flat FELARE, task_log", "paper", felare, ("task_log",), None),
+        ("flat ELARE on phase1_map", "paper",
+         policy.with_fused_phase1("ELARE"), (), None),
+        ("paper_x8 FELARE + fair_spill", "paper_x8", felare, (),
+         fair_spill),
+        ("paper_x8 FELARE + fair_spill, task_log and per-site timeline",
+         "paper_x8", felare, ("task_log", observe.Timeline(per_site=True)),
+         fair_spill),
+    )
+    for label, system, select_fn, observers, dispatcher in runs:
+        n = ops_per_iteration(system, select_fn, observers, dispatcher)
+        print(f"{label:62s} {n:8.2f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,9 @@
 """Discrete-event simulation engine for the HEC system, batched, in PyTorch.
 
 Counterpart of ``repro/core/engine.py`` for the flat system and the
-multi-site federation (no faults, network or observers). Semantics follow
-Sec. III of the paper and the reference op for op:
+multi-site federation, with engine observers and the energy-budget gate
+(no faults or network). Semantics follow Sec. III of the paper and the
+reference op for op:
 
   * mapping events fire on task arrival and task completion, plus a
     progress event at the earliest pending deadline;
@@ -27,6 +28,14 @@ Each simulation makes one int64 copy, which every gather, scatter and
 index of the loop takes, and keeps the int32 one for the kernels, so no
 iteration casts.
 
+Observers (:mod:`repro_torch.core.observe`) are notified after every
+stage, in :data:`STAGES` order, and their aux is frozen with the state.
+A dynamic observer (a finite ``energy_budget``) gates the loop: where it
+reports ``halted``, arrivals stop driving events, nothing is admitted and
+the admit stage cancels pending tasks and flushes the local queues. With
+no observers the loop issues no op for them, and with no dynamic
+observer none for the gate.
+
 A federation partitions the M machines into F sites. The dispatch stage
 gives each newly-admitted task a site, once; the map stage then runs the
 policy once per iteration over B * F rows, row ``b * F + f`` being site
@@ -44,7 +53,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import dispatch, fairness
+from repro_torch.core import dispatch, fairness, observe
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dispatch.base import site_minima
 from repro_torch.core.equations import BIG
@@ -67,6 +76,11 @@ from repro_torch.core.types import (
 )
 
 INF = float("inf")
+
+#: The event stages, in the order the loop runs them and notifies the
+#: observers (the flat system has no dispatch stage of its own, but its
+#: observers are notified there all the same).
+STAGES = ("finalize", "admit", "dispatch", "map", "start")
 
 #: Iterations between two host reads of "is any replicate still active".
 CHECK_EVERY = 32
@@ -117,11 +131,15 @@ def _init_state(trace: Trace, n_machines: int, queue_size: int,
     )
 
 
-def _next_event_time(st: SimState, trace: Trace) -> torch.Tensor:
+def _next_event_time(st: SimState, trace: Trace,
+                     halted: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B,) earliest of: next arrival, next completion, earliest pending
-    deadline (the progress guard). ``inf`` when nothing is left."""
+    deadline (the progress guard). ``inf`` when nothing is left. Where
+    ``halted`` (B,) is set, arrivals no longer drive events."""
     inf = torch.full((), INF, device=st.now.device)
     t_arr = torch.where(st.status == UNARRIVED, trace.arrival, inf).amin(1)
+    if halted is not None:
+        t_arr = torch.where(halted, INF, t_arr)
     t_comp = st.run_end_act.amin(1)
     t_dead = torch.where(st.status == PENDING, trace.deadline, inf).amin(1)
     return torch.minimum(torch.minimum(t_arr, t_comp), t_dead)
@@ -156,13 +174,44 @@ def _stage_finalize(st: SimState, trace: Trace, sysarr: SystemArrays):
     )
 
 
-def _stage_admit(st: SimState, trace: Trace):
-    """Admit newly-arrived tasks to the arriving queue."""
+def _stage_admit(st: SimState, trace: Trace,
+                 halted: Optional[torch.Tensor] = None):
+    """Admit newly-arrived tasks to the arriving queue.
+
+    Where a dynamic observer reports ``halted`` (B,), the replicate stops
+    taking work: nothing is admitted, every pending task is cancelled and
+    the local queues are flushed (:func:`_halt_shutdown`). Tasks already
+    running finish normally.
+    """
     newly = (st.status == UNARRIVED) & (trace.arrival <= st.now[:, None])
-    return st._replace(
+    if halted is not None:
+        newly = newly & ~halted[:, None]
+    st = st._replace(
         status=torch.where(newly, PENDING, st.status),
         arrived=_count_by_type(st.arrived, trace.task_type, newly),
     )
+    if halted is None:
+        return st
+    return _halt_shutdown(st, trace, halted)
+
+
+def _halt_shutdown(st: SimState, trace: Trace, halted: torch.Tensor):
+    """Cancel pending tasks and flush local queues where ``halted``."""
+    B, M, Q = st.queue.shape
+    n = st.status.shape[1]
+    drop = halted[:, None] & (st.status == PENDING)
+    status = torch.where(drop, CANCELLED, st.status)
+    cancelled = _count_by_type(st.cancelled, trace.task_type, drop)
+    victim = halted[:, None, None] & (st.queue >= 0)
+    vflat = victim.reshape(B, M * Q)
+    qflat = st.queue.reshape(B, M * Q)
+    status = set_masked(status, qflat, vflat, CANCELLED)
+    cancelled = _count_by_type(
+        cancelled, trace.task_type.gather(1, qflat.clamp(0, n - 1)), vflat)
+    return st._replace(
+        status=status, cancelled=cancelled,
+        queue=torch.where(victim, -1, st.queue),
+        qlen=torch.where(halted[:, None], 0, st.qlen))
 
 
 class _Fold(NamedTuple):
@@ -409,21 +458,47 @@ def _stage_start(st: SimState, trace: Trace, sysarr: SystemArrays):
     )
 
 
+def _pick(active: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    """``a`` on active replicates, else ``b``."""
+    mask = active.reshape(active.shape + (1,) * (a.dim() - 1))
+    return torch.where(mask, a, b)
+
+
 def _freeze(active: torch.Tensor, new: SimState, old: SimState) -> SimState:
     """Keep ``new`` only on active replicates (``vmap``'s frozen carry)."""
-    def pick(a, b):
-        mask = active.reshape(active.shape + (1,) * (a.dim() - 1))
-        return torch.where(mask, a, b)
+    return SimState(*(_pick(active, a, b) for a, b in zip(new, old)))
 
-    return SimState(*(pick(a, b) for a, b in zip(new, old)))
+
+def _freeze_aux(active: torch.Tensor, new: dict, old: dict) -> dict:
+    """:func:`_freeze` over every observer's aux; a leaf no stage
+    replaced is kept as it is."""
+    return observe.tree_map(
+        lambda a, b: a if a is b else _pick(active, a, b), new, old)
+
+
+def _bind_observers(observers, *, fairness_factor: float, queue_size: int,
+                    sites: tuple) -> tuple:
+    """Resolve names and bind the engine's configuration, as the
+    reference's ``make_simulator`` does; refuse duplicate names."""
+    bound = tuple(
+        ob.with_engine_config(fairness_factor=fairness_factor,
+                              queue_size=queue_size, site_of_machine=sites,
+                              tier_of_site=(0,) * (max(sites) + 1))
+        for ob in observe.resolve(observers))
+    names = [ob.name for ob in bound]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate observer names {names}")
+    return bound
 
 
 def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
                queue_size: int, fairness_factor: float = 1.0,
                max_steps: int | None = None, dispatcher=None,
-               site_of_machine: tuple | None = None) -> Callable:
-    """``run(trace) -> SimState``: the event loop of
-    :func:`make_simulator`, returning the final batched state."""
+               site_of_machine: tuple | None = None,
+               observers: tuple = ()) -> Callable:
+    """``run(trace) -> (SimState, aux)``: the event loop of
+    :func:`make_simulator`, returning the final batched state and each
+    observer's finalized result by name (``{}`` with no observers)."""
     S, M = sysarr.eet.shape
     sites = ((0,) * M if site_of_machine is None
              else tuple(int(s) for s in site_of_machine))
@@ -433,8 +508,11 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
     n_sites = max(sites) + 1
     fold = _make_fold(sysarr, sites) if n_sites > 1 else None
     dispatcher = dispatch.resolve(dispatcher)
+    observers = _bind_observers(observers, fairness_factor=fairness_factor,
+                                queue_size=queue_size, sites=sites)
+    gaters = tuple(ob for ob in observers if ob.is_dynamic)
 
-    def run(trace: Trace) -> SimState:
+    def run(trace: Trace):
         n = trace.arrival.shape[1]
         cap = max_steps if max_steps is not None else 8 * n + 64
         # the two forms of the types, made once: int32 for the kernels,
@@ -442,30 +520,48 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
         types32 = trace.task_type.to(torch.int32).contiguous()
         trace = trace._replace(task_type=trace.task_type.to(torch.int64))
         st = _init_state(trace, M, queue_size, S, n_sites)
+        aux = {ob.name: ob.init(trace, sysarr) for ob in observers}
         rows, max_new = None, 0
         if fold is not None:
             rows = _site_rows(fold, trace, types32)
             max_new = _max_admissions(trace.arrival)
+
+        def notify(stage, aux, new):
+            return {ob.name: ob.on_event(stage, aux[ob.name], new, trace,
+                                         sysarr)
+                    for ob in observers}
+
         it = 0
         while True:
-            t = _next_event_time(st, trace)
+            halted = None
+            for ob in gaters:
+                h = ob.halted(aux[ob.name], st)
+                halted = h if halted is None else halted | h
+            t = _next_event_time(st, trace, halted)
             active = torch.isfinite(t) & (st.steps < cap)
             if it % CHECK_EVERY == 0 and not bool(active.any()):
                 break
             new = st._replace(now=torch.maximum(t, st.now))
             new = _stage_finalize(new, trace, sysarr)
-            new = _stage_admit(new, trace)
+            new_aux = notify("finalize", aux, new)
+            new = _stage_admit(new, trace, halted)
+            new_aux = notify("admit", new_aux, new)
             if fold is not None:
                 new = _stage_dispatch(new, trace, sysarr, dispatcher, fold,
                                       fairness_factor, max_new)
+            new_aux = notify("dispatch", new_aux, new)
             new = _stage_map(new, trace, sysarr, select_fn, fairness_factor,
                              S, fold, rows, types32)
+            new_aux = notify("map", new_aux, new)
             new = _stage_start(new, trace, sysarr)
+            new_aux = notify("start", new_aux, new)
             new = new._replace(steps=new.steps + 1)
             st = _freeze(active, new, st)
+            aux = _freeze_aux(active, new_aux, aux)
             it += 1
             COUNTS["loop_iterations"] += 1
-        return st
+        return st, {ob.name: ob.finalize(aux[ob.name], st)
+                    for ob in observers}
 
     return run
 
@@ -473,25 +569,34 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
 def make_simulator(select_fn: Callable, sysarr: SystemArrays, *,
                    queue_size: int, fairness_factor: float = 1.0,
                    max_steps: int | None = None, dispatcher=None,
-                   site_of_machine: tuple | None = None) -> Callable:
-    """Build ``simulate(trace) -> Metrics`` for one mapping policy.
+                   site_of_machine: tuple | None = None,
+                   observers: tuple = ()) -> Callable:
+    """Build ``simulate(trace)`` for one mapping policy.
 
     ``trace`` is a batched :class:`Trace` (leaves (B, N) and (B, N, M))
-    on the device of ``sysarr``; the returned Metrics carry the leading
-    B. ``select_fn(now, pending, task_type, deadline, view, sysarr,
+    on the device of ``sysarr``; results carry the leading B.
+    ``select_fn(now, pending, task_type, deadline, view, sysarr,
     suffered)`` is any policy of :mod:`repro_torch.core.policy`.
 
     ``site_of_machine`` is the static federation partition (``None`` =
     one site) and ``dispatcher`` the :mod:`repro_torch.core.dispatch`
     rule that gives newly-admitted tasks their site (``None`` =
     ``sticky``; unused with one site).
+
+    ``observers`` are :mod:`repro_torch.core.observe` names or
+    instances. With ``observers=()`` the simulator returns bare
+    :class:`Metrics`; with observers it returns ``(Metrics, aux)``, where
+    ``aux`` maps each observer's name to its finalized result.
     """
     run = _make_loop(select_fn, sysarr, queue_size=queue_size,
                      fairness_factor=fairness_factor, max_steps=max_steps,
-                     dispatcher=dispatcher, site_of_machine=site_of_machine)
+                     dispatcher=dispatcher, site_of_machine=site_of_machine,
+                     observers=observers)
 
-    def simulate(trace: Trace) -> Metrics:
-        return _metrics(run(trace), sysarr)
+    def simulate(trace: Trace):
+        st, aux = run(trace)
+        metrics = _metrics(st, sysarr)
+        return (metrics, aux) if observers else metrics
 
     return simulate
 
@@ -537,12 +642,15 @@ def _resolve_dispatcher(dispatcher, use_fused_map: bool):
     return dispatch.with_fused_balance(disp) if use_fused_map else disp
 
 
-def simulate_batch(traces: Trace, spec, heuristic, *, max_steps=None,
-                   dispatcher=None, use_fused_map: bool = False,
-                   use_fused_phase1: bool = False, device=None) -> Metrics:
+def simulate_batch(traces: Trace, spec, heuristic, *, observers=(),
+                   max_steps=None, dispatcher=None,
+                   use_fused_map: bool = False,
+                   use_fused_phase1: bool = False, device=None):
     """Simulate a batch of traces (leaves (B, N), (B, N, M)) under one
     heuristic (a registered name or a policy object) on ``device``
-    (``None`` = the CUDA device). Returns Metrics with leading B.
+    (``None`` = the CUDA device). Returns Metrics with leading B, or
+    ``(Metrics, aux)`` when ``observers`` (names or instances) are
+    attached.
 
     ``spec.site_of_machine`` (if set) partitions the machines into sites
     served through ``dispatcher`` (a registered name or a dispatcher;
@@ -555,16 +663,18 @@ def simulate_batch(traces: Trace, spec, heuristic, *, max_steps=None,
         spec.as_torch(dev), queue_size=spec.queue_size,
         fairness_factor=float(spec.fairness_factor), max_steps=max_steps,
         dispatcher=_resolve_dispatcher(dispatcher, use_fused_map),
-        site_of_machine=spec.site_of_machine)
+        site_of_machine=spec.site_of_machine, observers=observers)
     return sim(_to_device(traces, dev))
 
 
-def simulate(trace: Trace, spec, heuristic, *, max_steps=None,
+def simulate(trace: Trace, spec, heuristic, *, observers=(), max_steps=None,
              dispatcher=None, use_fused_map: bool = False,
-             use_fused_phase1: bool = False, device=None) -> Metrics:
-    """One trace (leaves (N,), (N, M)), one SystemSpec, one heuristic."""
+             use_fused_phase1: bool = False, device=None):
+    """One trace (leaves (N,), (N, M)), one SystemSpec, one heuristic:
+    Metrics, or ``(Metrics, aux)`` with observers, without the batch dim."""
     batched = Trace(*(x[None] for x in trace))
-    m = simulate_batch(batched, spec, heuristic, max_steps=max_steps,
-                       dispatcher=dispatcher, use_fused_map=use_fused_map,
-                       use_fused_phase1=use_fused_phase1, device=device)
-    return Metrics(*(x[0] for x in m))
+    out = simulate_batch(batched, spec, heuristic, observers=observers,
+                         max_steps=max_steps, dispatcher=dispatcher,
+                         use_fused_map=use_fused_map,
+                         use_fused_phase1=use_fused_phase1, device=device)
+    return observe.tree_map(lambda x: x[0], out)

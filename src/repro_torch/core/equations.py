@@ -36,6 +36,18 @@ def seq_mean(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return seq_sum(x, dim) * (1.0 / x.shape[dim])
 
 
+def seq_dot(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Left-to-right float32 sum of products, ``acc = fma(a_i, b_i,
+    acc)``, as :func:`seq_sumsq` forms it: XLA's CPU code contracts the
+    products of a fused multiply-reduce the same way. ``a`` and ``b``
+    broadcast."""
+    prod = (a.double() * b.double()).movedim(dim, -1)
+    acc = prod[..., 0].to(F32)
+    for i in range(1, prod.shape[-1]):
+        acc = (prod[..., i] + acc.double()).to(F32)
+    return acc
+
+
 def seq_sumsq(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Left-to-right float32 sum of squares with a fused multiply-add per
     term, ``acc = fma(x_i, x_i, acc)``: the reference's compiled CPU

@@ -5,7 +5,8 @@ The raw material is a Metrics record of numpy arrays whose leaves carry
 traces. :class:`SweepResult` reduces it to what the paper plots: on-time
 completion rate, total and wasted energy, per-type fairness, each with a
 mean and a 95% normal CI over the replicates, and writes ``sweep.csv``
-and ``sweep.json``.
+and ``sweep.json``; with observers attached, also ``observers.json`` and,
+for ``timeline``, ``timeline.csv``.
 """
 from __future__ import annotations
 
@@ -46,7 +47,9 @@ class SweepResult:
     """Everything a sweep produced, reduced and raw.
 
     ``metrics`` leaves are numpy arrays: counts (H, R, K, S), energies
-    and makespan (H, R, K). ``device`` names where the sweep ran, and
+    and makespan (H, R, K). ``aux`` maps each attached observer's name to
+    its result, every leaf a numpy array leading with (H, R, K); ``{}``
+    when none was attached. ``device`` names where the sweep ran, and
     ``run_info`` holds per heuristic the wall seconds and the batched
     loop iterations.
     """
@@ -56,16 +59,19 @@ class SweepResult:
     heuristics: tuple[str, ...]
     rates: tuple[float, ...]
     metrics: Metrics
+    aux: dict = dataclasses.field(default_factory=dict, repr=False)
     device: str = ""
     run_info: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @classmethod
     def from_metrics(cls, spec, system: SystemSpec, metrics: Metrics, *,
-                     device: str = "", run_info=None) -> "SweepResult":
+                     aux=None, device: str = "",
+                     run_info=None) -> "SweepResult":
         metrics = Metrics(*(np.asarray(leaf) for leaf in metrics))
         return cls(spec=spec, system=system,
                    heuristics=tuple(spec.heuristics),
-                   rates=tuple(spec.rates), metrics=metrics, device=device,
+                   rates=tuple(spec.rates), metrics=metrics,
+                   aux=dict(aux or {}), device=device,
                    run_info=dict(run_info or {}))
 
     # ---------------------------------------------------------------- axes
@@ -201,8 +207,66 @@ class SweepResult:
             "summary": self.summary_rows(),
         }
 
+    # -------------------------------------------------- time-series views
+    def timeline_rows(self) -> list[dict]:
+        """Long-form CSV rows of the ``timeline`` observer's series.
+
+        One row per (heuristic, rate, replicate, bucket) with the sampled
+        queue occupancy, cumulative energies and per-type completions.
+        Raises KeyError if the sweep did not attach the observer.
+        """
+        tl = self.aux["timeline"]
+        H, R, K, B = tl["e_dyn"].shape
+        S = tl["completed"].shape[-1]
+        rows = []
+        for h_i, h in enumerate(self.heuristics):
+            for r_i, rate in enumerate(self.rates):
+                for k in range(K):
+                    for b in range(B):
+                        row = {
+                            "heuristic": h,
+                            "rate": rate,
+                            "rep": k,
+                            "bucket": b,
+                            "t": round(float(tl["t"][h_i, r_i, k, b]), 6),
+                            "qlen": int(tl["qlen"][h_i, r_i, k, b]),
+                            "running": int(tl["running"][h_i, r_i, k, b]),
+                            "energy_dynamic": round(
+                                float(tl["e_dyn"][h_i, r_i, k, b]), 4),
+                            "energy_idle": round(
+                                float(tl["e_idle"][h_i, r_i, k, b]), 4),
+                        }
+                        for s in range(S):
+                            row[f"completed_T{s + 1}"] = int(
+                                tl["completed"][h_i, r_i, k, b, s])
+                        rows.append(row)
+        return rows
+
+    def aux_json_dict(self) -> dict:
+        """Every observer's stacked aux as JSON-ready nested lists.
+
+        Non-finite floats (an unexhausted budget's ``t_exhausted=inf``)
+        become ``null``: strict RFC 8259 JSON.
+        """
+        def scrub(v):
+            if isinstance(v, list):
+                return [scrub(i) for i in v]
+            if isinstance(v, float) and not np.isfinite(v):
+                return None
+            return v
+
+        def conv(x):
+            if isinstance(x, dict):
+                return {k: conv(v) for k, v in x.items()}
+            return scrub(np.asarray(x).tolist())
+
+        return conv(self.aux)
+
     def save(self, outdir) -> dict[str, pathlib.Path]:
-        """Write ``sweep.csv`` + ``sweep.json`` under ``outdir``."""
+        """Write ``sweep.csv`` + ``sweep.json`` under ``outdir``, and with
+        observers attached ``observers.json`` (all observers, nested
+        lists) and, if ``timeline`` ran, a long-form ``timeline.csv``.
+        Returns the written paths keyed by format."""
         outdir = pathlib.Path(outdir)
         outdir.mkdir(parents=True, exist_ok=True)
         rows = self.summary_rows()
@@ -214,4 +278,18 @@ class SweepResult:
         json_path = outdir / "sweep.json"
         with open(json_path, "w") as f:
             json.dump(self.to_json_dict(), f, indent=2)
-        return {"csv": csv_path, "json": json_path}
+        paths = {"csv": csv_path, "json": json_path}
+        if self.aux:
+            obs_path = outdir / "observers.json"
+            with open(obs_path, "w") as f:
+                json.dump(self.aux_json_dict(), f, allow_nan=False)
+            paths["observers_json"] = obs_path
+        if "timeline" in self.aux:
+            trows = self.timeline_rows()
+            tpath = outdir / "timeline.csv"
+            with open(tpath, "w", newline="") as f:
+                writer = csv.DictWriter(f, fieldnames=list(trows[0].keys()))
+                writer.writeheader()
+                writer.writerows(trows)
+            paths["timeline_csv"] = tpath
+        return paths

@@ -12,9 +12,9 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import engine
+from repro_torch.core import engine, observe
 from repro_torch.core.device import resolve_device
-from repro_torch.core.types import Metrics, SystemSpec, Trace
+from repro_torch.core.types import SystemSpec, Trace
 from repro_torch.experiments.results import SweepResult
 from repro_torch.experiments.spec import SweepSpec
 
@@ -26,32 +26,34 @@ def _as_tensor(x) -> torch.Tensor:
 def simulate_sweep(traces: Trace, system: SystemSpec, heuristic_names, *,
                    dispatcher=None, use_fused_phase1: bool = False,
                    use_fused_map: bool = False, max_steps=None, device=None,
-                   run_info: dict | None = None) -> Metrics:
+                   observers=(), run_info: dict | None = None):
     """Simulate a flat batch of traces (leaves (B, N), (B, N, M)) under
     every heuristic, on ``device`` (``None`` = CUDA). A federated
     ``system`` dispatches through ``dispatcher`` (``None`` = ``sticky``);
     ``use_fused_map`` also puts its balance walk on the kernel.
 
-    Returns Metrics as numpy arrays with leaves (H, B, ...). When
-    ``run_info`` is a dict, it receives per heuristic the wall seconds
-    and the number of batched loop iterations.
+    Returns Metrics as numpy arrays with leaves (H, B, ...), or
+    ``(Metrics, aux)`` with ``observers`` attached, every aux leaf a
+    numpy array (H, B, ...). When ``run_info`` is a dict, it receives
+    per heuristic the wall seconds and the number of batched loop
+    iterations.
     """
     dev = resolve_device(device)
     per_h = []
     for name in heuristic_names:
         t0 = time.perf_counter()
         it0 = engine.COUNTS["loop_iterations"]
-        m = engine.simulate_batch(
-            traces, system, name, max_steps=max_steps, dispatcher=dispatcher,
-            use_fused_map=use_fused_map, use_fused_phase1=use_fused_phase1,
-            device=dev)
-        per_h.append(Metrics(*(x.cpu().numpy() for x in m)))
+        out = engine.simulate_batch(
+            traces, system, name, observers=observers, max_steps=max_steps,
+            dispatcher=dispatcher, use_fused_map=use_fused_map,
+            use_fused_phase1=use_fused_phase1, device=dev)
+        per_h.append(observe.tree_map(lambda x: x.cpu().numpy(), out))
         if run_info is not None:
             run_info[name] = {
                 "seconds": time.perf_counter() - t0,
                 "loop_iterations": engine.COUNTS["loop_iterations"] - it0,
             }
-    return Metrics(*(np.stack(xs) for xs in zip(*per_h)))
+    return observe.tree_map(lambda *xs: np.stack(xs), *per_h)
 
 
 def run_sweep(spec: SweepSpec, *, traces: Trace | None = None,
@@ -61,8 +63,9 @@ def run_sweep(spec: SweepSpec, *, traces: Trace | None = None,
     Builds the (rates x reps) trace stack from ``spec.seed`` — or takes
     ``traces``, any stack whose leaves lead with (R, K) (numpy arrays or
     tensors, e.g. the reference's own ``trace_stack``) — simulates it
-    under every heuristic and wraps the per-trace Metrics, reshaped to
-    (H, R, K, ...), in a :class:`SweepResult`.
+    under every heuristic and wraps the per-trace Metrics and the
+    observers' results, reshaped to (H, R, K, ...), in a
+    :class:`SweepResult`.
     """
     dev = resolve_device(device)
     system = spec.resolve_system()
@@ -74,12 +77,15 @@ def run_sweep(spec: SweepSpec, *, traces: Trace | None = None,
     flat = Trace(*(_as_tensor(x).reshape((R * K,) + tuple(x.shape[2:]))
                    for x in traces))
     run_info: dict = {}
-    metrics = simulate_sweep(
+    observers = spec.resolve_observers()
+    out = simulate_sweep(
         flat, system, spec.heuristics, dispatcher=spec.dispatcher,
         use_fused_phase1=spec.use_fused_phase1,
         use_fused_map=spec.use_fused_map, max_steps=spec.max_steps,
-        device=dev, run_info=run_info)
+        device=dev, observers=observers, run_info=run_info)
+    metrics, aux = out if observers else (out, {})
     H = len(spec.heuristics)
-    metrics = Metrics(*(x.reshape((H, R, K) + x.shape[2:]) for x in metrics))
-    return SweepResult.from_metrics(spec, system, metrics, device=str(dev),
-                                    run_info=run_info)
+    metrics, aux = observe.tree_map(
+        lambda x: x.reshape((H, R, K) + x.shape[2:]), (metrics, aux))
+    return SweepResult.from_metrics(spec, system, metrics, aux=aux,
+                                    device=str(dev), run_info=run_info)

@@ -53,7 +53,12 @@ class SweepSpec:
     the port's CUDA kernels. ``dispatcher`` is the federation's
     site-selection rule, a registered name or a dispatcher instance; a
     single-site system has no dispatch stage, so it changes nothing
-    there.
+    there. ``observers`` are engine observers, registered names
+    (built-ins: ``"timeline"``, ``"fairness_trajectory"``,
+    ``"task_log"``, ``"energy_budget"``) or
+    :class:`repro_torch.core.observe.Observer` instances; their results
+    come back on :attr:`SweepResult.aux` stacked under the same (H, R, K)
+    dims as the metrics.
     """
 
     system: Union[str, SystemSpec, None] = None
@@ -70,6 +75,7 @@ class SweepSpec:
     max_steps: Optional[int] = None
     scenario: str = "poisson"
     dispatcher: Union[str, object] = "sticky"
+    observers: tuple = ()
 
     def __post_init__(self):
         object.__setattr__(self, "rates",
@@ -108,10 +114,37 @@ class SweepSpec:
             raise ValueError(
                 f"dispatcher must be a registered name or a "
                 f"dispatch.Dispatcher, got {self.dispatcher!r}")
+        from repro_torch.core import observe
+
+        obs = []
+        for ob in (self.observers if not isinstance(self.observers, str)
+                   else (self.observers,)):
+            if isinstance(ob, str):
+                name = ob.strip().lower()
+                if not observe.is_registered(name):
+                    raise ValueError(
+                        f"unknown observer {ob!r}; "
+                        f"choose from {observe.list_observers()} "
+                        f"(or observe.register(...) your own)")
+                obs.append(name)
+            else:
+                try:  # one protocol check: the registry's
+                    observe.resolve((ob,))
+                except TypeError as e:
+                    raise ValueError(str(e)) from None
+                obs.append(ob)
+        object.__setattr__(self, "observers", tuple(obs))
 
     @property
     def n_simulations(self) -> int:
         return len(self.heuristics) * len(self.rates) * self.reps
+
+    def resolve_observers(self) -> tuple:
+        """Materialize the :class:`repro_torch.core.observe.Observer`
+        tuple."""
+        from repro_torch.core import observe
+
+        return observe.resolve(self.observers)
 
     def resolve_scenario(self):
         from repro_torch import scenarios
@@ -159,6 +192,17 @@ class SweepSpec:
             }
         if not isinstance(self.dispatcher, str):
             d["dispatcher"] = dispatch.to_json_dict(self.dispatcher)
+        observers = []
+        for ob in self.observers:
+            if isinstance(ob, str):
+                observers.append(ob)
+            elif hasattr(ob, "to_json_dict"):
+                observers.append(ob.to_json_dict())
+            else:
+                raise ValueError(
+                    f"observer {ob!r} has no to_json_dict; register it and "
+                    f"pass the name to make the spec serializable")
+        d["observers"] = observers
         d["rates"] = list(self.rates)
         d["heuristics"] = list(self.heuristics)
         return d

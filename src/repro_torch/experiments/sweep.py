@@ -9,7 +9,9 @@ comma list (``2,3,4.5``) or an inclusive ``start:stop:step`` range.
 ``--fused-map`` runs the whole map decision (and a federation's balance
 walk) through the ``map_fused`` kernels, ``--fused-phase1`` ELARE's
 Phase I through ``phase1_map``. ``--dispatcher`` picks a federation's
-site-selection rule (``--list-dispatchers``).
+site-selection rule (``--list-dispatchers``). ``--observers`` attaches
+engine observers (``--list-observers``), whose results are written as
+``observers.json`` and, for ``timeline``, ``timeline.csv``.
 Unknown names and bad grids exit with an ``error:`` line and status 2.
 """
 from __future__ import annotations
@@ -19,7 +21,7 @@ import sys
 import time
 
 from repro_torch import scenarios
-from repro_torch.core import dispatch, policy
+from repro_torch.core import dispatch, observe, policy
 from repro_torch.core.device import resolve_device
 from repro_torch.experiments.results import SweepResult
 from repro_torch.experiments.runner import run_sweep
@@ -63,6 +65,13 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
     ap.add_argument("--list-dispatchers", action="store_true",
                     help="list the registered federation dispatchers and "
                          "exit")
+    ap.add_argument("--observers", default="",
+                    help="comma list of registered engine observers to "
+                         "attach (e.g. timeline,task_log; see "
+                         "--list-observers). Their time-resolved outputs "
+                         "are written next to the sweep artifacts.")
+    ap.add_argument("--list-observers", action="store_true",
+                    help="list the registered engine observers and exit")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cv-run", type=float, default=0.1,
                     help="CV of actual runtimes around the EET (default 0.1)")
@@ -90,6 +99,9 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
     if args.list_dispatchers:
         print_dispatcher_list()
         raise SystemExit(0)
+    if args.list_observers:
+        print_observer_list()
+        raise SystemExit(0)
     heuristics = tuple(
         h.strip() for h in args.heuristics.split(",") if h.strip()
     )
@@ -105,6 +117,13 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
         ap.error(f"unknown dispatcher {args.dispatcher!r}; registered "
                  "dispatchers: " + ", ".join(dispatch.list_dispatchers())
                  + " (run with --list-dispatchers for details)")
+    observers = tuple(
+        o.strip() for o in args.observers.split(",") if o.strip())
+    unknown = [o for o in observers if not observe.is_registered(o)]
+    if unknown:
+        ap.error(f"unknown observers {unknown}; registered observers: "
+                 + ", ".join(observe.list_observers())
+                 + " (run with --list-observers for details)")
     try:
         rates = parse_rates(args.rates) if args.rates else DEFAULT_RATES
         spec = SweepSpec(
@@ -120,6 +139,7 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
             use_fused_phase1=args.fused_phase1,
             use_fused_map=args.fused_map,
             dispatcher=args.dispatcher,
+            observers=observers,
         )
         args.device = resolve_device(args.device)
     except (ValueError, RuntimeError) as e:
@@ -144,6 +164,13 @@ def print_dispatcher_list(file=None) -> None:
     file = file if file is not None else sys.stdout
     for name in dispatch.list_dispatchers():
         print(f"{name:14s} {dispatch.describe(name)}", file=file)
+
+
+def print_observer_list(file=None) -> None:
+    """One line per registered engine observer: name + description."""
+    file = file if file is not None else sys.stdout
+    for name in observe.list_observers():
+        print(f"{name:22s} {observe.describe(name)}", file=file)
 
 
 def print_summary(result: SweepResult, file=None) -> None:

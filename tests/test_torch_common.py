@@ -165,6 +165,6 @@ def port_federated(tspec, traces, heuristic, dispatcher, fused):
         fairness_factor=float(tspec.fairness_factor),
         dispatcher=tengine._resolve_dispatcher(dispatcher, fused),
         site_of_machine=tspec.site_of_machine)
-    st = run(traces)
+    st, _ = run(traces)
     return (interop.metrics_to_numpy(tengine._metrics(st, sysarr)),
             st.site.numpy())

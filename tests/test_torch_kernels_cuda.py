@@ -654,3 +654,42 @@ def test_ssm_scan_exact_bc_is_the_general_route_bit_for_bit_on_card(
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert_ssd_matches_plain((x, dt, A, Bh, Ch), 128, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system,dispatcher", [("paper", None),
+                                               ("paper_x2", "fair_spill")])
+def test_observed_fused_run_matches_observed_plain_run_on_card(system,
+                                                               dispatcher):
+    """The observers on the kernel path equal the observers on the plain
+    path on the card, every aux leaf bit for bit (float32 times and
+    energies included), with a finite energy budget halting some
+    replicates."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from repro_torch import scenarios
+    from repro_torch.core import engine, observe
+
+    spec = scenarios.get_fleet(system).build()
+    F = spec.n_sites
+    traces = scenarios.DEFAULT.stack(0, (2.0 * F, 6.0 * F), 3, 300, spec.eet,
+                                     device="cuda")
+    flat = type(traces)(*(x.reshape((-1,) + x.shape[2:]) for x in traces))
+    m = engine.simulate_batch(flat, spec, "FELARE", dispatcher=dispatcher,
+                              device="cuda")
+    cap = float((m.energy_dynamic + m.energy_idle).mean()) * 0.5
+    observers = ("task_log", "fairness_trajectory",
+                 observe.Timeline(per_site=True),
+                 observe.EnergyBudget(capacity=cap))
+    runs = [engine.simulate_batch(flat, spec, "FELARE", observers=observers,
+                                  dispatcher=dispatcher, use_fused_map=fused,
+                                  device="cuda") for fused in (True, False)]
+    (mk, aux_k), (mp, aux_p) = runs
+    for a, b in zip(mk, mp):
+        assert torch.equal(a, b)
+    assert set(aux_k) == set(aux_p)
+    for name in aux_k:
+        for leaf in aux_k[name]:
+            assert torch.equal(aux_k[name][leaf], aux_p[name][leaf]), \
+                (system, name, leaf)
+    assert bool(aux_k["energy_budget"]["exhausted"].any())
