@@ -81,7 +81,9 @@ raises, so the script exits non-zero and prints no result line:
               task_log alone, and of the federated FELARE + fair_spill
               sweep on paper_x2 and paper_x8 under torch.profiler (wall vs
               device-busy time, kernels per iteration, which must not grow
-              with the sites);
+              with the sites), and of the faulted paper_x8 sweeps (FELARE +
+              health_aware under the outages, FELARE + fair_spill under
+              churn; see phase 16);
   7. serve    zamba2-2.7b at its published width (54 layers, d_model 2560,
               bf16, random weights from torch.Generator seed 0) serves 8
               requests of 1024 prompt tokens (numpy seed 0) for 64 greedy
@@ -115,7 +117,7 @@ raises, so the script exits non-zero and prints no result line:
               energies within rel 1e-5 (sums over machines run in another
               order there);
  11. fed      the federated sweep: paper_x8 (8 sites of the 4x4 system,
-              total rates 16-64, 30 replicates of 4000 tasks) with FELARE
+              total rates 16-64, 30 replicates of 2000 tasks) with FELARE
               + fair_spill and ELARE + least_queued, then tiered_x4 (four
               unequal sites, masked views) with FELARE + least_queued, all
               on the fused kernels: map_decide and balance_scan launch
@@ -141,7 +143,33 @@ raises, so the script exits non-zero and prints no result line:
  15. observe_parity  the plain path on the card gives every aux leaf of
               phases 13 and 14 identical (float32 times included), and a
               2 x 2 subset of phase 13 on the CPU gives identical task_log
-              and fairness_trajectory, energies within rel 1e-5.
+              and fairness_trajectory, energies within rel 1e-5;
+ 16. faults   machine faults on the kernels, the dynamics from fixed
+              parameters, on the first 10 replicates of the flat and
+              federated traces cut to 1000 tasks (paper_x2's drawn alike):
+              paper_x8 under the outages of sites 0 and 3 (a quarter of
+              the horizon each) with FELARE + health_aware (task_log and
+              health attached) and with FELARE + sticky (on-time share
+              reported beside it), paper_x8 under churn (p_fail 0.02,
+              p_recover 0.2 per machine and event) with FELARE +
+              fair_spill, paper_x2 under the same churn with
+              with_backup(FELARE, 1) + health_aware (the failover at 8
+              machines), and the flat system with machine 1 at 2.0 x
+              under ELARE on phase1_map. Each run's launch counts, zeroed
+              just before it, show every kernel of its path on every
+              batched event; no task started on a machine in its site's
+              window; retries within max_retries + 1; the health series
+              shows sites 0 and 3 without a healthy machine in their
+              windows and whole outside; churn wastes at least the energy
+              the same sweep wastes without faults, and that sweep, run
+              with dynamics="none", gives the Metrics of the fed phase's
+              run (its 2 x 2 subset) and of phase 14's on the same traces;
+ 17. faults_parity  the faulted runs but the sticky one, on 5 replicates
+              cut to 300 tasks, through the kernels and the plain path
+              on the card: every Metrics field and aux leaf identical
+              (float32 times, task_log with retries, health); the outage
+              run's 2 x 2 subset on the CPU gives identical counters,
+              task_log and health, energies within rel 1e-5.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, one
 ``{"kernels": [...]}`` line (a row with ``by_shape`` gives each path
@@ -173,7 +201,10 @@ WIDE_SHAPE = dict(B=8, N=10_000, M=512, S=8)
 RATES = (2.0, 3.0, 4.0, 6.0, 8.0)
 # The federation: the paper's per-site rates (2-8 tasks/s) at every site.
 FED_RATES = tuple(8 * r for r in RATES)          # paper_x8, total tasks/s
-FED_TASKS = 4000
+# 2000 tasks per trace, the paper's length (4000 until the faulted paths
+# joined the smoke: the host sets a sweep's time by its iterations, so
+# the tasks are what fits the phases under the limit)
+FED_TASKS = 2000
 TIER_RATES = (12.0, 24.0)                        # tiered_x4, total tasks/s
 TIER_REPS, TIER_TASKS = 10, 2000
 CPU_SUBSET_TASKS = 1000
@@ -184,6 +215,33 @@ CPU_SUBSET_TASKS = 1000
 # the phase's time).
 OBSERVERS = ("task_log", "timeline", "fairness_trajectory", "energy_budget")
 OBS_FED_REPS, OBS_FED_TASKS = 10, 1000
+# Machine faults, the dynamics from fixed parameters: sites 0 and 3 of
+# paper_x8 down for a quarter of the horizon each, churn (a machine fails
+# with p 0.02 per event and recovers with p 0.2), and machine 1 of the
+# flat system at twice the runtime. Each run: (label, system, heuristic,
+# dispatcher, dynamics, observers, kernels). The faulted sweeps take the
+# first 10 replicates of the flat and federated traces, cut to 1000 tasks
+# (the observed federation's traces; an iteration costs the host about
+# the same at any batch, so only shorter traces shorten the phase); the
+# plain path is held on 5 of them cut to 300.
+FAULT_OUTAGES = ((0, 0.25, 0.5), (3, 0.5, 0.75))
+FAULT_CHURN = dict(p_fail=0.02, p_recover=0.2, seed=0)
+FAULT_STRAGGLER = dict(factor=2.0, machines=(1,))
+FAULT_BACKUP = "FELARE_BACKUP1"                  # with_backup(FELARE, k=1)
+FAULT_RUNS = (
+    ("paper_x8 FELARE health_aware outage", "paper_x8", "FELARE",
+     "health_aware", "outage", ("task_log", "health"), "map"),
+    ("paper_x8 FELARE sticky outage", "paper_x8", "FELARE", "sticky",
+     "outage", (), "map"),
+    ("paper_x8 FELARE fair_spill churn", "paper_x8", "FELARE", "fair_spill",
+     "churn", (), "map"),
+    ("paper_x2 with_backup(FELARE, 1) health_aware churn", "paper_x2",
+     FAULT_BACKUP, "health_aware", "churn", ("task_log",), "map"),
+    ("paper ELARE straggler", "paper", "ELARE", "sticky", "straggler",
+     ("task_log",), "phase1"),
+)
+FAULT_REPS, FAULT_TASKS = OBS_FED_REPS, OBS_FED_TASKS
+FAULT_PARITY_REPS, FAULT_PARITY_TASKS = 5, 300
 # balance_scan: the federated path's shape, then more new tasks than one
 # 4096-task tile of the kernel, and N off the 16-task vector grain.
 BALANCE_SHAPES = (dict(B=150, N=FED_TASKS, F=8), dict(B=8, N=10_000, F=32),
@@ -261,8 +319,14 @@ SSD_CASES = (  # B, L, H, P, N, chunk
 )
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(time.perf_counter() - _T0, 1)}),
+          flush=True)
 
 
 def require(cond: bool, what: str) -> None:
@@ -944,8 +1008,9 @@ def run_federated_path(device, reps: int) -> dict:
     just before it, must show one map_decide and one balance_scan per
     batched event, whatever the site count. Then the parity of the
     FELARE runs with the plain path on the card and with the CPU.
-    Returns the launch counts in all and by system, and the paper_x8
-    traces."""
+    Returns the launch counts in all and by system, the paper_x8 traces
+    and the paper_x8 FELARE + fair_spill result on the card's 2 x 2
+    subset."""
     from repro_torch import scenarios
     from repro_torch.core.types import Trace
     from repro_torch.experiments import SweepSpec, run_sweep
@@ -1014,7 +1079,7 @@ def run_federated_path(device, reps: int) -> dict:
                            "tasks": CPU_SUBSET_TASKS},
          plain_seconds=plain_seconds,
          cpu_seconds=cpu.run_info["FELARE"]["seconds"])
-    return total, by_system, traces["paper_x8"]
+    return total, by_system, traces["paper_x8"], card
 
 
 # --------------------------------------------------------------------------
@@ -1204,8 +1269,8 @@ def run_observed_federation(device, traces, reps: int) -> dict:
     first ``OBS_FED_TASKS`` tasks. The launch counts must show all three
     kernels on every batched event, the final ``task_log.site`` must be
     the engine's final ``SimState.site``, and the plain path on the card
-    must give every aux leaf identical. Returns the launch counts and
-    what the parity run found."""
+    must give every aux leaf identical. Returns the launch counts, what
+    the parity run found and the observed sweep's result."""
     import numpy as np
     import torch
 
@@ -1264,7 +1329,250 @@ def run_observed_federation(device, traces, reps: int) -> dict:
          final_site="task_log.site equals SimState.site")
     return counts, {"fed_plain_on_card": "every aux leaf identical "
                                          "(task_log, per-site timeline)",
-                    "fed_plain_seconds": plain_seconds}
+                    "fed_plain_seconds": plain_seconds}, res
+
+
+# --------------------------------------------------------------------------
+# Machine faults on the kernel path
+# --------------------------------------------------------------------------
+def fault_dynamics(kind: str):
+    """The smoke's machine dynamics, from fixed parameters."""
+    from repro_torch.core import faults
+
+    return {"outage": faults.SiteOutage(outages=FAULT_OUTAGES),
+            "churn": faults.BernoulliUpDown(**FAULT_CHURN),
+            "straggler": faults.Degrade(**FAULT_STRAGGLER)}[kind]
+
+
+def fault_spec(run: tuple, rates, reps: int, n_tasks: int, fused=True):
+    from repro_torch.experiments import SweepSpec
+
+    _, system, heuristic, dispatcher, kind, observers, kernels = run
+    return SweepSpec(system=system, rates=rates, reps=reps, n_tasks=n_tasks,
+                     heuristics=(heuristic,), seed=0, dispatcher=dispatcher,
+                     dynamics=fault_dynamics(kind), observers=observers,
+                     use_fused_map=fused and kernels == "map",
+                     use_fused_phase1=fused and kernels == "phase1")
+
+
+def fault_expected(run: tuple, steps: int) -> dict:
+    """Launches a faulted run must show: each kernel of its path on
+    every batched event."""
+    _, _, heuristic, dispatcher, _, _, kernels = run
+    if kernels == "phase1":
+        return {"map_decide": 0, "evict_stats": 0, "balance_scan": 0,
+                "phase1_map": steps}
+    walks = dispatcher in ("health_aware", "fair_spill", "least_queued")
+    return {"map_decide": steps, "evict_stats": steps,
+            "balance_scan": steps if walks else 0, "phase1_map": 0}
+
+
+def check_outage(res, traces) -> dict:
+    """The outage run against its windows: no task starts on a machine of
+    a site inside that site's window (every task orphaned never, whose
+    one start the task log holds), retries within ``max_retries + 1``,
+    and the health series with no healthy machine of a site in buckets
+    inside its window, all healthy in buckets clear of it, and every
+    other site whole throughout."""
+    import numpy as np
+
+    from repro_torch import scenarios
+
+    system = scenarios.get_fleet("paper_x8").build()
+    sites = np.asarray(system.site_of_machine)
+    m = int((sites == 0).sum())
+    log = {k: v.reshape((-1,) + v.shape[3:])
+           for k, v in res.aux["task_log"].items()}
+    hl = {k: v.reshape((-1,) + v.shape[3:])
+          for k, v in res.aux["health"].items()}
+    horizon = traces.deadline.reshape(len(log["status"]), -1).amax(1)
+    horizon = horizon.cpu().numpy()
+    ran = log["machine"] >= 0
+    once = ran & (log["retries"] == 0)
+    started = log["start_time"]
+    run_site = sites[np.maximum(log["machine"], 0)]
+    bad = 0
+    width = horizon * np.float32(1.0 / hl["t"].shape[1])
+    hi = hl["t"]
+    lo = hi - width[:, None]
+    for s, a, b in FAULT_OUTAGES:
+        t0 = (np.float32(a) * horizon)[:, None]
+        t1 = (np.float32(b) * horizon)[:, None]
+        bad += int((once & (run_site == s) & (started >= t0)
+                    & (started < t1)).sum())
+        # one bucket of margin against the rounding of the edges
+        w = width[:, None]
+        inside = (lo >= t0 + w) & (hi <= t1 - w)
+        clear = (hi <= t0 - w) | (lo >= t1 + w)
+        require(bool(np.all(hl["site_healthy"][..., s][inside] == 0)),
+                f"outage: site {s} has a healthy machine in its window")
+        require(bool(np.all(hl["site_healthy"][..., s][clear] == m)),
+                f"outage: site {s} short of machines outside its window")
+        require(bool(inside.any()) and bool(clear.any()),
+                f"outage: no bucket inside or clear of site {s}'s window")
+    require(bad == 0, f"outage: {bad} tasks started in their site's window")
+    others = [f for f in range(system.n_sites)
+              if f not in {s for s, _, _ in FAULT_OUTAGES}]
+    require(bool(np.all(hl["site_healthy"][..., others] == m)),
+            "outage: a site without a window lost a machine")
+    retries = log["retries"]
+    max_retries = fault_dynamics("outage").max_retries
+    require(int(retries.max()) <= max_retries + 1
+            and int(retries[log["status"] != 6].max(initial=0))
+            <= max_retries, f"outage: retries {int(retries.max())}")
+    require(int(retries.sum()) > 0, "outage: nothing was orphaned")
+    return {"tasks_checked": int(once.sum()),
+            "orphans": int(retries.sum()),
+            "retried_tasks": int((retries > 0).sum()),
+            "max_retries_seen": int(retries.max()),
+            "cancelled_by_exhaustion": int(((retries > max_retries)
+                                            & (log["status"] == 6)).sum())}
+
+
+def run_faults_path(device, flat_traces, x8_traces, fed_refs) -> tuple:
+    """The faulted sweeps on the kernels (see :data:`FAULT_RUNS`), each
+    run's launch counts zeroed just before it and held to one launch per
+    batched event of every kernel of its path; the outage run against
+    its windows; the same paper_x8 sweep with ``dynamics="none"`` against
+    ``fed_refs`` (the ``fed`` phase's run on its card subset and the
+    observed federation's run, on the same traces) and as the churn
+    run's baseline: churn wastes at least its energy. Returns the launch
+    counts, the traces and the rates by system."""
+    import numpy as np
+
+    from repro_torch import scenarios
+    from repro_torch.core import faults, policy
+    from repro_torch.core.types import Metrics, Trace
+    from repro_torch.experiments import SweepSpec, run_sweep
+
+    policy.register(FAULT_BACKUP, faults.with_backup("FELARE", 1),
+                    overwrite=True)
+    x2 = scenarios.get_fleet("paper_x2").build()
+    traces = {
+        "paper": Trace(*(x[:, :FAULT_REPS, :FAULT_TASKS]
+                         for x in flat_traces)),
+        "paper_x8": Trace(*(x[:, :FAULT_REPS, :FAULT_TASKS]
+                            for x in x8_traces)),
+        "paper_x2": scenarios.DEFAULT.stack(
+            0, tuple(2 * r for r in RATES), FAULT_REPS, FAULT_TASKS, x2.eet,
+            device=device),
+    }
+    rates = {"paper": RATES, "paper_x2": tuple(2 * r for r in RATES),
+             "paper_x8": FED_RATES}
+    total, results = {}, {}
+    for run in FAULT_RUNS:
+        label, system, heuristic = run[:3]
+        reset_counts()
+        res = run_sweep(fault_spec(run, rates[system], FAULT_REPS,
+                                   FAULT_TASKS), traces=traces[system],
+                        device=device)
+        counts = read_counts()
+        summarize(res, label, phase="faults")
+        steps = res.run_info[heuristic]["loop_iterations"]
+        expect = fault_expected(run, steps)
+        require(steps > 0, f"{label}: no batched event")
+        for k, v in expect.items():
+            require(counts[k] == v,
+                    f"{label}: {k}: {counts[k]} launches, {v} expected")
+        if "task_log" in res.aux:
+            check_observed(label, res.metrics, res.aux)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        results[label] = res
+        emit("faults", run=label, dynamics=run[4], launches=counts,
+             expected=expect,
+             orphans=(int(res.aux["task_log"]["retries"].sum())
+                      if "task_log" in res.aux else None))
+
+    aware = results[FAULT_RUNS[0][0]]
+    outage = check_outage(aware, traces["paper_x8"])
+    sticky = results[FAULT_RUNS[1][0]]
+    emit("faults", run="outage: health_aware against sticky", **outage,
+         completion_rate_health_aware=[float(v) for v in
+                                       aware.completion_rate[0]],
+         completion_rate_sticky=[float(v) for v in sticky.completion_rate[0]],
+         rates=list(FED_RATES))
+
+    # -- the same paper_x8 sweep with dynamics="none": the fed phase's and
+    # the observed federation's Metrics on their traces, and the churn
+    # run's baseline ----------------------------------------------------
+    churn = results[FAULT_RUNS[2][0]]
+    none = run_sweep(SweepSpec(
+        system="paper_x8", rates=FED_RATES, reps=FAULT_REPS,
+        n_tasks=FAULT_TASKS, heuristics=("FELARE",), seed=0,
+        dispatcher="fair_spill", dynamics="none", use_fused_map=True),
+        traces=traces["paper_x8"], device=device)
+    for ref, what in zip(fed_refs, ("fed (card subset)", "observe_fed")):
+        r, k = ref.metrics.makespan.shape[1:]
+        head = Metrics(*(x[:, :r, :k] for x in none.metrics))
+        for a, b, f in zip(head, ref.metrics, Metrics._fields):
+            require(np.array_equal(a, b), f"dynamics='none' vs {what}: {f}")
+    wasted = (float(churn.metrics.energy_wasted.sum()),
+              float(none.metrics.energy_wasted.sum()))
+    require(wasted[0] >= wasted[1],
+            f"churn wasted {wasted[0]} J, {wasted[1]} J without faults")
+    emit("faults", run="churn against no faults",
+         wasted=wasted[0], unfaulted_wasted=wasted[1],
+         completion_rate=[float(v) for v in churn.completion_rate[0]],
+         unfaulted_completion_rate=[float(v) for v in
+                                    none.completion_rate[0]],
+         seconds=churn.run_info["FELARE"]["seconds"],
+         unfaulted_seconds=none.run_info["FELARE"]["seconds"],
+         loop_iterations=churn.run_info["FELARE"]["loop_iterations"],
+         unfaulted_loop_iterations=none.run_info["FELARE"][
+             "loop_iterations"],
+         none="Metrics identical to the fed phase's (2 x 2 subset) and "
+              "the observed federation's runs")
+    return total, traces, rates
+
+
+def run_faults_parity(device, traces: dict, rates: dict) -> None:
+    """The faulted runs (the sticky comparison aside) through the kernels
+    and through the plain path on the card, on the first
+    ``FAULT_PARITY_REPS`` replicates cut to ``FAULT_PARITY_TASKS`` tasks:
+    every Metrics field and aux leaf identical. Then the outage run's
+    2 x 2 subset on the CPU: identical counters, task_log and health
+    series, energies within rel 1e-5."""
+    from repro_torch.core.types import Trace
+    from repro_torch.experiments import run_sweep
+
+    seconds = {}
+    for run in FAULT_RUNS[:1] + FAULT_RUNS[2:]:   # the sticky one aside
+        label, system = run[:2]
+        sub = Trace(*(x[:, :FAULT_PARITY_REPS, :FAULT_PARITY_TASKS]
+                      for x in traces[system]))
+        out = [run_sweep(fault_spec(run, rates[system], FAULT_PARITY_REPS,
+                                    FAULT_PARITY_TASKS, fused=fused),
+                         traces=sub, device=device) for fused in (True, False)]
+        fused, plain = out
+        for a, b, k in zip(fused.metrics, plain.metrics,
+                           fused.metrics._fields):
+            require(a.dtype == b.dtype and (a == b).all(),
+                    f"{label}: fused vs plain: {k} differs")
+        same_aux(fused.aux, plain.aux, f"{label}: fused vs plain (card)")
+        seconds[label] = {"fused": fused.run_info[run[2]]["seconds"],
+                          "plain": plain.run_info[run[2]]["seconds"]}
+        if run is FAULT_RUNS[0]:
+            cpu_sub = Trace(*(x[:2, :2].cpu() for x in sub))
+            cpu = run_sweep(fault_spec(run, rates[system][:2], 2,
+                                       FAULT_PARITY_TASKS),
+                            traces=cpu_sub, device="cpu")
+            card = type(fused.metrics)(*(x[:, :2, :2]
+                                         for x in fused.metrics))
+            same_counts(cpu.metrics, card, f"{label}: card vs CPU subset",
+                        energy_rel=1e-5)
+            from repro_torch.core import observe
+
+            same_aux(cpu.aux, observe.tree_map(lambda x: x[:, :2, :2],
+                                               fused.aux),
+                     f"{label}: card vs CPU subset")
+            seconds["cpu_subset"] = cpu.run_info[run[2]]["seconds"]
+    emit("faults_parity",
+         plain_on_card="every Metrics field and aux leaf identical "
+                       "(task_log with retries, health)",
+         cpu_subset="identical counters, task_log and health; energies "
+                    "within rel 1e-5",
+         reps=FAULT_PARITY_REPS, tasks=FAULT_PARITY_TASKS, seconds=seconds)
 
 
 # --------------------------------------------------------------------------
@@ -1590,7 +1898,9 @@ def profile_main_path(device, reps: int, n_tasks: int, fed_reps: int,
     flat fused FELARE sweep with all four observers and with ``task_log``
     alone, then of
     the federated fused FELARE + fair_spill sweep on paper_x2 and on
-    paper_x8, whose kernels per iteration must agree within 2."""
+    paper_x8, whose kernels per iteration must agree within 2, and of the
+    faulted paper_x8 sweeps (the outage under health_aware, churn under
+    fair_spill)."""
     from repro_torch import scenarios
     from repro_torch.core import api, dispatch, engine, policy
 
@@ -1627,6 +1937,24 @@ def profile_main_path(device, reps: int, n_tasks: int, fed_reps: int,
             f"FELARE fair_spill fused_map {name}", sim, flat, steps)
     require(abs(per_iteration["paper_x2"] - per_iteration["paper_x8"]) <= 2,
             f"kernels per iteration grow with the sites: {per_iteration}")
+
+    # the faulted paper_x8 runs, unobserved: the outage under health_aware
+    # and churn under fair_spill (the first 64 iterations run whatever the
+    # health: the faults stage issues the same ops on every event)
+    faulted = {}
+    for run in (FAULT_RUNS[0], FAULT_RUNS[2]):
+        sim = engine.make_simulator(
+            policy.with_fused_map(run[2]), system.as_torch(device),
+            queue_size=system.queue_size, max_steps=steps,
+            dispatcher=dispatch.with_fused_balance(run[3]),
+            site_of_machine=system.site_of_machine,
+            dynamics=fault_dynamics(run[4]))
+        faulted[f"{run[3]}, {run[4]}"] = profile_sim(
+            f"{run[2]} {run[3]} fused_map paper_x8, {run[4]}", sim, flat,
+            steps)
+    emit("profile", run="faulted against unfaulted paper_x8",
+         kernels_per_iteration=faulted,
+         unfaulted_kernels_per_iteration=per_iteration["paper_x8"])
 
 
 # --------------------------------------------------------------------------
@@ -1796,9 +2124,10 @@ def time_kernels(device, errs: dict) -> list:
 
 def time_balance_scan(device) -> dict:
     """``balance_scan`` at the federated paths' shapes (paper_x8: 150
-    replicates of 4000 tasks over 8 sites; tiered_x4: 20 replicates of 2000
-    tasks over 4 sites) on the data those paths give it: one admission per
-    replicate per event. Times by CUDA events after warm-up (``ms``,
+    replicates of ``FED_TASKS`` tasks over 8 sites; tiered_x4: 20
+    replicates of 2000 tasks over 4 sites) on the data those paths give
+    it: one admission per replicate per event. Times by CUDA events after
+    warm-up (``ms``,
     ``plain_ms``), device time by ``torch.profiler``, and the same with
     every task new (the serial walk's longest case)."""
     import numpy as np
@@ -2118,18 +2447,34 @@ def main(argv=None) -> int:
     if args.fed_reps != 30:
         emit("cut", fed_reps=args.fed_reps,
              note="federated path run below paper scale (30 reps)")
+    # the cuts that keep the whole script under its time limit: the host
+    # sets a sweep's time by its iterations, so tasks are what is cut
+    emit("cut", fed_tasks=FED_TASKS,
+         note="federated sweeps at 2000 tasks per trace (4000 before the "
+              "faulted sweeps joined)")
+    emit("cut", fault_reps=FAULT_REPS, fault_tasks=FAULT_TASKS,
+         note="faulted sweeps at 10 replicates x 1000 tasks (10 x 2000 "
+              "asked)")
+    emit("cut", fault_parity_reps=FAULT_PARITY_REPS,
+         fault_parity_tasks=FAULT_PARITY_TASKS,
+         note="faulted plain-path parity at 5 replicates x 300 tasks "
+              "(5 x 1000 allowed)")
     flat, flat_traces, flat_res = run_main_path(device, args.reps,
                                                 args.tasks)
-    fed, fed_by_system, x8_traces = run_federated_path(device,
-                                                       args.fed_reps)
+    fed, fed_by_system, x8_traces, fed_subset = run_federated_path(
+        device, args.fed_reps)
     observed, parity = run_observed_path(device, flat_traces, flat_res,
                                          args.tasks)
-    obs_fed, fed_parity = run_observed_federation(
+    obs_fed, fed_parity, obs_fed_res = run_observed_federation(
         device, x8_traces, min(args.fed_reps, OBS_FED_REPS))
     emit("observe_parity", **parity, **fed_parity)
+    faulted, fault_traces, fault_rates = run_faults_path(
+        device, flat_traces, x8_traces, (fed_subset, obs_fed_res))
+    run_faults_parity(device, fault_traces, fault_rates)
     paths = {"flat": flat, "federated": fed, "serve": serve,
              "observed": {k: observed[k] + obs_fed.get(k, 0)
-                          for k in observed}}
+                          for k in observed},
+             "faults": faulted}
     shape_counts = {"flat": flat, **fed_by_system}
     for row in rows:
         counters = row.get("counters", [row["name"]])

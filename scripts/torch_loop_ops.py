@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Count the PyTorch ops one batched iteration of the port's event loop
-dispatches, with and without engine observers, on the CPU.
+dispatches, with and without engine observers and machine faults, on the
+CPU.
 
     PYTHONPATH=src python scripts/torch_loop_ops.py
 
@@ -19,7 +20,7 @@ import collections
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import scenarios
-from repro_torch.core import dispatch, engine, observe, policy
+from repro_torch.core import dispatch, engine, faults, observe, policy
 
 STEPS = 64
 NOT_COUNTED = {
@@ -29,6 +30,11 @@ NOT_COUNTED = {
     "diagonal", "_local_scalar_dense", "item", "size", "stride",
 }
 ALL_FOUR = ("task_log", "timeline", "fairness_trajectory", "energy_budget")
+# The dynamics of chip_smoke.py's faults phase: two site outages, churn,
+# one straggler at twice the runtime.
+OUTAGE = faults.SiteOutage(outages=((0, 0.25, 0.5), (3, 0.5, 0.75)))
+CHURN = faults.BernoulliUpDown(p_fail=0.02, p_recover=0.2, seed=0)
+STRAGGLER = faults.Degrade(factor=2.0, machines=(1,))
 
 
 class _Count(TorchDispatchMode):
@@ -44,7 +50,7 @@ class _Count(TorchDispatchMode):
 
 
 def ops_per_iteration(system: str, select_fn, observers=(),
-                      dispatcher=None) -> float:
+                      dispatcher=None, dynamics=None) -> float:
     spec = scenarios.get_fleet(system).build()
     F = spec.n_sites
     traces = scenarios.DEFAULT.stack(0, (2.0 * F, 8.0 * F), 2, 300,
@@ -55,7 +61,7 @@ def ops_per_iteration(system: str, select_fn, observers=(),
         sim = engine.make_simulator(
             select_fn, spec.as_torch("cpu"), queue_size=spec.queue_size,
             max_steps=steps, observers=observers, dispatcher=dispatcher,
-            site_of_machine=spec.site_of_machine)
+            site_of_machine=spec.site_of_machine, dynamics=dynamics)
         mode = _Count()
         with mode:
             sim(flat)
@@ -81,6 +87,23 @@ def main() -> None:
     )
     for label, system, select_fn, observers, dispatcher in runs:
         n = ops_per_iteration(system, select_fn, observers, dispatcher)
+        print(f"{label:62s} {n:8.2f}")
+    health_aware = dispatch.with_fused_balance("health_aware")
+    faulted = (
+        ("paper_x8 FELARE + health_aware, outage", "paper_x8", felare, (),
+         health_aware, OUTAGE),
+        ("paper_x8 FELARE + health_aware, outage, task_log and health",
+         "paper_x8", felare, ("task_log", "health"), health_aware, OUTAGE),
+        ("paper_x8 FELARE + fair_spill, churn", "paper_x8", felare, (),
+         fair_spill, CHURN),
+        ("paper_x2 with_backup(FELARE, 1) + health_aware, churn",
+         "paper_x2", policy.with_fused_map(faults.with_backup("FELARE", 1)),
+         (), health_aware, CHURN),
+        ("flat ELARE on phase1_map, straggler", "paper",
+         policy.with_fused_phase1("ELARE"), (), None, STRAGGLER),
+    )
+    for label, system, select_fn, observers, dispatcher, dyn in faulted:
+        n = ops_per_iteration(system, select_fn, observers, dispatcher, dyn)
         print(f"{label:62s} {n:8.2f}")
 
 

@@ -7,10 +7,10 @@ A :class:`Dispatcher` picks the site of each newly-admitted task at the
 engine's ``dispatch`` stage; the mapping policy then runs once per
 iteration over every site's view, folded into the batch. Built-ins:
 ``sticky`` (the default), ``round_robin``, ``least_queued``, ``min_eet``,
-``fair_spill``, and ``health_aware`` / ``tier_aware`` in the form they
-take without machine dynamics or a network. ``with_fused_balance`` puts
-the least-loaded walk of ``least_queued`` and ``fair_spill`` on the
-``balance_scan`` kernel.
+``fair_spill``, ``health_aware`` (dead-home tasks re-routed under machine
+dynamics), and ``tier_aware`` in the form it takes without a network.
+``with_fused_balance`` puts the least-loaded walk of ``least_queued``,
+``fair_spill`` and ``health_aware`` on the ``balance_scan`` kernel.
 """
 from __future__ import annotations
 

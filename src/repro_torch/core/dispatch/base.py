@@ -11,8 +11,11 @@ a batch of B replicates and caches each derived per-site aggregate. The
 site partition and the site count are static: one (M,) partition for the
 whole batch.
 
-The faults and network slices are not ported: ``alive``, ``xfer_lat``
-and ``xfer_energy`` must be ``None``.
+With a machine dynamics attached the engine hands the context the
+replicates' health, ``alive`` (B, M), and an EET table masked by it, one
+per replicate, (B, S, M): dead machines' columns read BIG and
+stragglers' are slowdown-scaled. The network slice is not ported:
+``xfer_lat`` and ``xfer_energy`` must be ``None`` (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -29,9 +32,10 @@ from repro_torch.kernels.map_fused.ops import balance_scan_plain
 
 def site_minima(eet: torch.Tensor, members: torch.Tensor) -> torch.Tensor:
     """(S, F) each type's fastest EET within each site, from the (S, M)
-    table and the (F, M) membership grid."""
+    table and the (F, M) membership grid; (B, S, F) from per-replicate
+    (B, S, M) tables."""
     big = torch.full((), BIG, device=eet.device)
-    return torch.where(members[None], eet[:, None, :], big).amin(dim=2)
+    return torch.where(members, eet[..., None, :], big).amin(dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,13 +53,13 @@ class DispatchContext:
     running: torch.Tensor      # (B, M) bool machine is executing a task
     completed: torch.Tensor    # (B, S) int64 on-time completions so far
     arrived: torch.Tensor      # (B, S) int64 arrivals so far
-    eet: torch.Tensor          # (S, M) f32 expected execution times
+    eet: torch.Tensor          # (S, M) f32, or (B, S, M) health-masked
     site_of_machine: object    # (M,) int static partition (array or tensor)
     n_sites: int               # F, static
     fairness_factor: float     # Eq. 3's f, static engine config
-    alive: Optional[torch.Tensor] = None        # faults: not ported
-    xfer_lat: Optional[torch.Tensor] = None     # network: not ported
-    xfer_energy: Optional[torch.Tensor] = None  # network: not ported
+    alive: Optional[torch.Tensor] = None        # (B, M) bool, None: no faults
+    xfer_lat: Optional[torch.Tensor] = None     # network: not ported (A5)
+    xfer_energy: Optional[torch.Tensor] = None  # network: not ported (A5)
     #: (S, F) :attr:`eet_min_by_site`, when the caller already holds it
     #: (the engine computes it once per simulator: without faults it is
     #: static).
@@ -66,11 +70,11 @@ class DispatchContext:
     max_new: Optional[int] = None
 
     def __post_init__(self):
-        for name in ("alive", "xfer_lat", "xfer_energy"):
+        for name in ("xfer_lat", "xfer_energy"):
             if getattr(self, name) is not None:
                 raise NotImplementedError(
-                    f"DispatchContext.{name}: the faults and network "
-                    f"subsystems are not ported")
+                    f"DispatchContext.{name}: the network subsystem is not "
+                    f"ported (ROADMAP A5)")
 
     # -- static shapes ------------------------------------------------------
     @property
@@ -121,16 +125,21 @@ class DispatchContext:
     # -- derived per-site EET structure ------------------------------------
     @functools.cached_property
     def eet_min_by_site(self) -> torch.Tensor:
-        """(S, F) f32 — each type's fastest machine within each site."""
+        """(S, F) f32 — each type's fastest machine within each site;
+        (B, S, F) from a health-masked table, where a site with no healthy
+        machine reads BIG."""
         if self.eet_min_site is not None:
             return self.eet_min_site
         return site_minima(self.eet, self.site_members)
 
     # -- site health (faults subsystem) -------------------------------------
-    @property
+    @functools.cached_property
     def site_alive(self) -> Optional[torch.Tensor]:
-        """``None``: without machine dynamics every site is up."""
-        return None
+        """(B, F) bool — heartbeat mask: a site is alive iff it has at
+        least one healthy machine. ``None`` without machine dynamics."""
+        if self.alive is None:
+            return None
+        return self._per_site(self.alive.to(torch.int64)) > 0
 
     # -- fairness monitor ---------------------------------------------------
     @functools.cached_property
@@ -166,6 +175,11 @@ def sequential_balance(ctx: DispatchContext, target_mask, home,
     site's load, so simultaneous admissions spread instead of
     dog-piling one site. Integer arithmetic throughout.
 
+    With machine dynamics (``ctx.site_alive`` is not None) dead sites
+    enter the walk with a +1,000,000 load penalty, so the least-loaded
+    choice never lands on a site without a healthy machine while any
+    site is up.
+
     ``impl`` optionally replaces the plain walk with a fused
     implementation of the same contract (``impl(load0, unassigned,
     target_mask, home) -> (B, N) int64 sites``): the CUDA
@@ -173,6 +187,8 @@ def sequential_balance(ctx: DispatchContext, target_mask, home,
     :func:`repro_torch.core.dispatch.with_fused_balance`.
     """
     load0 = ctx.site_load
+    if ctx.site_alive is not None:
+        load0 = load0 + torch.where(ctx.site_alive, 0, 1_000_000)
     if impl is not None:
         return impl(load0, ctx.unassigned, target_mask, home)
     return balance_scan_plain(load0, ctx.unassigned, target_mask, home,

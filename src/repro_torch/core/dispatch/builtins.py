@@ -2,10 +2,9 @@
 
 Each is a frozen (hashable) dataclass carrying the same ``kind`` and
 fields as its JAX twin. All are dispatch-once: a task's site is chosen
-the first time it is pending and never migrates. ``health_aware`` and
-``tier_aware`` are ported in the form they take without machine dynamics
-and without a network, where they equal ``sticky`` and ``min_eet`` bit
-for bit.
+the first time it is pending and never migrates (an orphan of a dead
+machine is dispatched anew). ``tier_aware`` is ported in the form it takes
+without a network, where it equals ``min_eet`` bit for bit.
 """
 from __future__ import annotations
 
@@ -33,6 +32,16 @@ def _hash_sites(batch: int, n_tasks: int, n_sites: int, salt: int,
 def _homes(ctx: DispatchContext, salt: int) -> torch.Tensor:
     B, N = ctx.unassigned.shape
     return _hash_sites(B, N, ctx.n_sites, int(salt), ctx.unassigned.device)
+
+
+def _fastest_site(ctx: DispatchContext) -> torch.Tensor:
+    """Each task's site with the fastest machine for its type (lowest
+    site on ties), from the shared (S, F) minima or per replicate from
+    health-masked (B, S, F) ones."""
+    best = ctx.eet_min_by_site.argmin(dim=-1)         # (S,) or (B, S)
+    if best.dim() == 1:
+        return best[ctx.task_type]
+    return best.gather(1, ctx.task_type)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +101,7 @@ class MinEet:
     kind = "min_eet"
 
     def dispatch(self, ctx: DispatchContext) -> torch.Tensor:
-        return ctx.eet_min_by_site.argmin(dim=1)[ctx.task_type]
+        return _fastest_site(ctx)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +129,7 @@ class TierAware:
     kind = "tier_aware"
 
     def dispatch(self, ctx: DispatchContext) -> torch.Tensor:
-        return ctx.eet_min_by_site.argmin(dim=1)[ctx.task_type]
+        return _fastest_site(ctx)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,12 +137,21 @@ class HealthAware:
     """Sticky homes, but tasks whose home site is down re-route to the
     least-loaded healthy site.
 
-    Without machine dynamics (the only form ported) no site is down and
-    this is ``sticky``, bit for bit."""
+    Reads the heartbeat mask ``ctx.site_alive`` (a site is alive iff it
+    has a healthy machine). Healthy-home tasks keep their hash home; with
+    no dynamics attached the mask is absent and this is ``sticky``, bit
+    for bit. Dead-home tasks enter the ``sequential_balance`` walk (on
+    the ``balance_scan`` kernel with ``with_fused_balance``), where dead
+    sites carry a load penalty, so re-routed work spreads over the
+    surviving sites."""
 
     kind = "health_aware"
     salt: int = 0
     balance_impl: Optional[Callable] = None
 
     def dispatch(self, ctx: DispatchContext) -> torch.Tensor:
-        return _homes(ctx, self.salt)
+        home = _homes(ctx, self.salt)
+        if ctx.site_alive is None:
+            return home
+        reroute = ~ctx.site_alive.gather(1, home)
+        return sequential_balance(ctx, reroute, home, self.balance_impl)

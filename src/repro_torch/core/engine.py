@@ -1,9 +1,9 @@
 """Discrete-event simulation engine for the HEC system, batched, in PyTorch.
 
 Counterpart of ``repro/core/engine.py`` for the flat system and the
-multi-site federation, with engine observers and the energy-budget gate
-(no faults or network). Semantics follow Sec. III of the paper and the
-reference op for op:
+multi-site federation, with engine observers, the energy-budget gate and
+machine faults (no network). Semantics follow Sec. III of the paper and
+the reference op for op:
 
   * mapping events fire on task arrival and task completion, plus a
     progress event at the earliest pending deadline;
@@ -14,8 +14,8 @@ reference op for op:
 
 The reference runs one ``lax.while_loop`` per trace and ``vmap``s it; the
 port runs one Python loop over a batch of B traces. Each iteration runs
-the stages finalize -> admit -> dispatch -> map -> start on every
-replicate, then keeps the new state only where the replicate is still
+the stages finalize -> admit -> [faults ->] dispatch -> map -> start on
+every replicate, then keeps the new state only where the replicate is still
 active (its next event time is finite and it has taken fewer than
 ``8 N + 64`` steps):
 ``where(active, new, old)`` on every field, ``steps`` included, so a
@@ -45,6 +45,22 @@ that are equal contiguous blocks of m machines fold by reshaping the
 (B, M) state to (B * F, m); any other partition folds into (B * F, M)
 views that mask the other sites' machines out. With one site both stages
 are the flat path's.
+
+A machine dynamics (:mod:`repro_torch.core.faults`) adds the ``faults``
+stage: it evolves each replicate's per-machine health, flushes the
+queues of machines that died and kills their running tasks (whose
+partial energy is spent and wasted); those orphans re-enter dispatch in
+the same event, or are cancelled past ``max_retries``, and under a
+``with_backup`` policy a killed task fails over to its first healthy,
+non-full backup. Downstream, dead machines read avail=BIG, EET=BIG,
+empty and full queues at the dispatch and map stages, like out-of-site
+machines, stragglers' EET columns and runtimes are slowdown-scaled, and
+dead machines never start a task. The health-masked EET is one table
+per replicate, (B, S, M), so the site views' tables are folded from it
+every event. Scheduled dynamics (outage windows) add their window edges
+to the next-event times. With ``dynamics=None`` or ``"none"`` none of
+this runs: the state carries no health fields and the loop issues not
+one op more.
 """
 from __future__ import annotations
 
@@ -53,10 +69,11 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import dispatch, fairness, observe
+from repro_torch.core import dispatch, fairness, faults, observe
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dispatch.base import site_minima
-from repro_torch.core.equations import BIG
+from repro_torch.core.eet import type_rows
+from repro_torch.core.equations import BIG, seq_dot, seq_sum
 from repro_torch.core.policy import MachineView
 from repro_torch.core.policy.base import set_masked
 from repro_torch.core.types import (
@@ -79,11 +96,16 @@ INF = float("inf")
 
 #: The event stages, in the order the loop runs them and notifies the
 #: observers (the flat system has no dispatch stage of its own, but its
-#: observers are notified there all the same).
-STAGES = ("finalize", "admit", "dispatch", "map", "start")
+#: observers are notified there all the same; ``faults`` runs, and is
+#: notified, only when a machine dynamics is attached).
+STAGES = ("finalize", "admit", "faults", "dispatch", "map", "start")
 
 #: Iterations between two host reads of "is any replicate still active".
 CHECK_EVERY = 32
+
+#: The most machines whose sums the faults stage takes left to right, as
+#: the reference's compiled code does (:func:`_killed_energy`).
+SEQ_SUM_MAX = 8
 
 #: Batched loop iterations run since the last reset. Each iteration calls
 #: the map stage's policy once for the whole batch.
@@ -92,15 +114,19 @@ COUNTS = {"loop_iterations": 0}
 
 def _count_by_type(counts, task_type, mask):
     """``counts[b, task_type[b, k]] += mask[b, k]`` (the reference's
-    ``segment_sum`` over types), as a new tensor."""
+    ``segment_sum`` over types), as a new tensor. Any valid index tensor
+    serves for ``task_type``: an entry whose mask is off adds 0."""
     return counts.scatter_add(1, task_type, mask.to(counts.dtype))
 
 
 def _init_state(trace: Trace, n_machines: int, queue_size: int,
-                n_types: int, n_sites: int = 1) -> SimState:
+                n_types: int, n_sites: int = 1, health: bool = False,
+                backup_k: int = 0) -> SimState:
     """The state before the first event. With one site every task's site
     is 0 from the start (the reference gives it 0 at admission); in a
-    federation it is -1 until the task is dispatched."""
+    federation it is -1 until the task is dispatched. ``health`` adds the
+    fault fields (every machine alive at nominal speed, no retries) and
+    ``backup_k`` the backup table."""
     B, n = trace.arrival.shape
     M, Q, S = n_machines, queue_size, n_types
     dev = trace.arrival.device
@@ -128,21 +154,32 @@ def _init_state(trace: Trace, n_machines: int, queue_size: int,
         cancelled=full((B, S), 0, i64),
         arrived=full((B, S), 0, i64),
         steps=full((B,), 0, i64),
+        alive=full((B, M), True, torch.bool) if health else None,
+        slowdown=full((B, M), 1.0, f32) if health else None,
+        retries=full((B, n), 0, i64) if health else None,
+        backup=full((B, n, backup_k), -1, i64) if backup_k else None,
     )
 
 
 def _next_event_time(st: SimState, trace: Trace,
-                     halted: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     halted: Optional[torch.Tensor] = None,
+                     wake_ts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B,) earliest of: next arrival, next completion, earliest pending
     deadline (the progress guard). ``inf`` when nothing is left. Where
-    ``halted`` (B,) is set, arrivals no longer drive events."""
+    ``halted`` (B,) is set, arrivals no longer drive events. ``wake_ts``
+    (B, W) are a scheduled dynamics' window edges: each fires once, as
+    only strictly future ones count."""
     inf = torch.full((), INF, device=st.now.device)
     t_arr = torch.where(st.status == UNARRIVED, trace.arrival, inf).amin(1)
     if halted is not None:
         t_arr = torch.where(halted, INF, t_arr)
     t_comp = st.run_end_act.amin(1)
     t_dead = torch.where(st.status == PENDING, trace.deadline, inf).amin(1)
-    return torch.minimum(torch.minimum(t_arr, t_comp), t_dead)
+    t = torch.minimum(torch.minimum(t_arr, t_comp), t_dead)
+    if wake_ts is None:
+        return t
+    t_wake = torch.where(wake_ts > st.now[:, None], wake_ts, inf).amin(1)
+    return torch.minimum(t, t_wake)
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +251,189 @@ def _halt_shutdown(st: SimState, trace: Trace, halted: torch.Tensor):
         qlen=torch.where(halted[:, None], 0, st.qlen))
 
 
+class _Health(NamedTuple):
+    """A machine dynamics and what the faults stage needs with it, static
+    per simulation."""
+
+    dynamics: object
+    max_retries: int
+    backup_k: int
+    sites: tuple                # (M,) static partition
+    n_sites: int
+    site_ids: torch.Tensor      # (M,) int64 the partition on the device
+    horizon: torch.Tensor       # (B,) f32 each trace's max deadline
+    wake_ts: Optional[torch.Tensor]  # (B, W) f32 window edges, or None
+    earlier: torch.Tensor       # (M, M) bool, [m, j] = j < m
+
+
+def _make_health(dynamics, select_fn, sites: tuple, trace: Trace
+                 ) -> Optional[_Health]:
+    """The :class:`_Health` of a simulation, ``None`` without dynamics."""
+    if dynamics is None:
+        return None
+    dev = trace.arrival.device
+    M = len(sites)
+    horizon = trace.deadline.amax(1)
+    wake = tuple(float(w) for w in dynamics.wake_fracs())
+    wake_ts = None
+    if wake:
+        wake_ts = torch.tensor(wake, dtype=torch.float32,
+                               device=dev)[None, :] * horizon[:, None]
+    m = torch.arange(M, device=dev)
+    return _Health(dynamics, int(getattr(dynamics, "max_retries", 3)),
+                   int(getattr(select_fn, "backup_k", 0)), sites,
+                   max(sites) + 1,
+                   torch.as_tensor(sites, dtype=torch.int64, device=dev),
+                   horizon, wake_ts, m[None, :] < m[:, None])
+
+
+def _stage_faults(st: SimState, trace: Trace, sysarr: SystemArrays,
+                  h: _Health) -> SimState:
+    """Evolve machine health and orphan the casualties (the reference's
+    ``_stage_faults``, in its order):
+
+      1. ``dynamics.step`` proposes the next ``(alive, slowdown)``.
+      2. Newly-dead machines flush their local queues: each queued task
+         is orphaned, its retry count incremented; it re-enters dispatch
+         (PENDING, site cleared) unless the count exceeds
+         ``max_retries``, when it is CANCELLED and keeps its site.
+      3. Newly-dead machines kill their running task: the partial run's
+         dynamic energy is spent and wasted, and the task is orphaned
+         the same way, except that under ``with_backup`` an orphan with
+         a healthy, non-full backup is enqueued there directly (QUEUED
+         on the backup's site). Queue victims never fail over.
+
+    Every scatter sends masked-out entries to an extra column, or adds 0;
+    nothing reads back to the host.
+    """
+    B, M, Q = st.queue.shape
+    n = st.status.shape[1]
+    alive, slowdown = h.dynamics.step(faults.FaultContext(
+        now=st.now, steps=st.steps, horizon=h.horizon, alive=st.alive,
+        slowdown=st.slowdown, site_of_machine=h.sites, n_sites=h.n_sites))
+    alive = alive.to(torch.bool)
+    slowdown = slowdown.to(torch.float32)
+    died = st.alive & ~alive
+
+    # -- 2. flush dead machines' local queues ---------------------------------
+    qflat = st.queue.reshape(B, M * Q)
+    qvict = (died[:, :, None] & (st.queue >= 0)).reshape(B, M * Q)
+    qsafe = qflat.clamp(0, n - 1)
+    retries = _count_by_type(st.retries, qsafe, qvict)
+    q_exh = qvict & (retries.gather(1, qsafe) > h.max_retries)
+    status = set_masked(st.status, qflat, qvict,
+                        torch.where(q_exh, CANCELLED, PENDING))
+    cancelled = _count_by_type(st.cancelled, trace.task_type.gather(1, qsafe),
+                               q_exh)
+    site = set_masked(st.site, qflat, qvict & ~q_exh, -1)
+    queue = torch.where(died[:, :, None], -1, st.queue)
+    qlen = torch.where(died, 0, st.qlen)
+
+    # -- 3. kill running tasks on newly-dead machines ------------------------
+    kill = died & (st.run_task >= 0)
+    vict = torch.where(kill, st.run_task, 0)
+    dur = torch.where(kill, st.now[:, None] - st.run_start, 0.0)
+    spent, wasted = _killed_energy(sysarr.p_dyn, dur)
+    retries = _count_by_type(retries, vict, kill)
+    r_exh = kill & (retries.gather(1, vict) > h.max_retries)
+    cancelled = _count_by_type(cancelled, trace.task_type.gather(1, vict),
+                               r_exh)
+    orphan = kill & ~r_exh
+    new_site = -1
+    if h.backup_k:
+        target, slot = _failover(st.backup, vict, orphan, alive, qlen, Q, h)
+        moved = target >= 0
+        queue = _enqueue(queue, target, slot, vict, moved)
+        qlen = _count_by_type(qlen, target.clamp(min=0), moved)
+        new_status = torch.where(moved, QUEUED, PENDING)
+        new_site = torch.where(moved, h.site_ids[target.clamp(min=0)], -1)
+    else:
+        new_status = PENDING
+    status = set_masked(status, vict, kill,
+                        torch.where(r_exh, CANCELLED, new_status))
+    site = set_masked(site, vict, orphan, new_site)
+    now = st.now[:, None]
+    return st._replace(
+        alive=alive, slowdown=slowdown, status=status, site=site,
+        queue=queue, qlen=qlen, retries=retries, cancelled=cancelled,
+        run_task=torch.where(kill, -1, st.run_task),
+        run_end_act=torch.where(kill, INF, st.run_end_act),
+        run_end_exp=torch.where(kill, now, st.run_end_exp),
+        run_success=st.run_success & ~kill,
+        e_dyn=st.e_dyn + spent, e_wasted=st.e_wasted + wasted,
+        busy_time=st.busy_time + dur)
+
+
+def _killed_energy(p_dyn, dur):
+    """(B,) dynamic energy spent, and wasted, by the killed runs.
+
+    Up to :data:`SEQ_SUM_MAX` machines this is the reference's compiled
+    sums: the spent energy left to right with an FMA per machine, the
+    wasted one (a select of the products) on the rounded products. Past
+    it XLA vectorizes both, which the port does not mimic: one reduction
+    serves both there (ROADMAP C)."""
+    if dur.shape[1] <= SEQ_SUM_MAX:
+        return seq_dot(p_dyn, dur), seq_sum(p_dyn * dur)
+    spent = (p_dyn * dur).sum(1)
+    return spent, spent
+
+
+def _failover(backup, vict, orphan, alive, qlen, Q: int, h: _Health):
+    """(B, M) the backup machine each killed task fails over to (-1 =
+    none), and its queue slot there.
+
+    The reference scans the dead machines in index order, so that two
+    orphans favouring one backup cannot both take its last slot; an
+    orphan takes its first backup that is alive and has room at its turn.
+    With one backup that is a ranking: the orphan of rank r among those
+    naming backup b fails over iff ``qlen[b] + r < Q``. With more, a
+    fall-through can take a slot a later orphan wanted first, so the
+    scan runs over the machines.
+    """
+    B, M = vict.shape
+    k = h.backup_k
+    bks = backup.gather(1, vict[:, :, None].expand(B, M, k))      # (B, M, k)
+    bsafe = bks.clamp(min=0)
+    ok = ((bks >= 0) & orphan[:, :, None]
+          & alive.gather(1, bsafe.reshape(B, M * k)).reshape(B, M, k))
+    if k == 1:
+        b, ok = bks[:, :, 0], ok[:, :, 0]
+        rank = (ok[:, None, :] & (b[:, None, :] == b[:, :, None])
+                & h.earlier).sum(2)
+        slot = qlen.gather(1, bsafe[:, :, 0]) + rank
+        return torch.where(ok & (slot < Q), b, -1), slot
+    target = torch.full_like(vict, -1)
+    slot = torch.zeros_like(vict)
+    for m in range(M):
+        q = qlen.gather(1, bsafe[:, m])                           # (B, k)
+        room = ok[:, m] & (q < Q)
+        first = room.to(torch.int32).argmax(1, keepdim=True)      # lowest
+        moved = room.any(1)
+        t = torch.where(moved, bks[:, m].gather(1, first)[:, 0], -1)
+        target[:, m] = t
+        slot[:, m] = q.gather(1, first)[:, 0]
+        qlen = _count_by_type(qlen, t.clamp(min=0)[:, None],
+                              moved[:, None])
+    return target, slot
+
+
+def _enqueue(queue, target, slot, task, mask):
+    """``queue[b, target[b, j], slot[b, j]] = task[b, j]`` where
+    ``mask[b, j]``; the rest go to an extra column that is cut off."""
+    B, M, Q = queue.shape
+    flat = torch.cat([queue.reshape(B, M * Q),
+                      queue.new_full((B, 1), -1)], dim=1)
+    idx = torch.where(mask, target.clamp(min=0) * Q + slot, M * Q)
+    return flat.scatter(1, idx, task)[:, :M * Q].reshape(B, M, Q)
+
+
+def _health_eet(sysarr: SystemArrays, st: SimState) -> torch.Tensor:
+    """(B, S, M) EET as the dispatch and map stages see it under faults:
+    dead machines' columns BIG, stragglers' scaled by their slowdown."""
+    return torch.where(st.alive[:, None, :],
+                       sysarr.eet * st.slowdown[:, None, :], BIG)
+
+
 class _Fold(NamedTuple):
     """How a federation's F site views of each replicate fold into the
     batch (rows ``b * F + f``). Static per simulator."""
@@ -281,13 +501,26 @@ def _site_rows(fold: _Fold, trace: Trace, types32: torch.Tensor
                      trace.deadline.repeat_interleave(F, dim=0), tables)
 
 
+def _site_eet(fold: _Fold, eet: torch.Tensor) -> torch.Tensor:
+    """The site views' (B * F, S, w) EET tables folded from per-replicate
+    (B, S, M) ones, as :func:`_make_fold` folds the shared table."""
+    B, S, M = eet.shape
+    F = fold.n_sites
+    if fold.block:
+        return eet.reshape(B, S, F, M // F).transpose(1, 2).reshape(
+            B * F, S, M // F)
+    return torch.where(fold.members[:, None, :], eet[:, None],
+                       BIG).reshape(B * F, S, M)
+
+
 def _max_admissions(arrival: torch.Tensor) -> int:
     """The most tasks one event can admit, read once per simulation.
 
     An event never passes the earliest arrival still to come, so the
     tasks one event admits share one arrival time: the largest count of
     equal arrival times in a replicate bounds them, and with them the
-    tasks the dispatch stage finds new.
+    tasks the dispatch stage finds new. (Under faults the orphans of the
+    machines that died at the event come on top; the engine adds them.)
     """
     a = arrival.sort(dim=1).values
     B, n = a.shape
@@ -300,21 +533,27 @@ def _max_admissions(arrival: torch.Tensor) -> int:
 
 def _stage_dispatch(st: SimState, trace: Trace, sysarr: SystemArrays,
                     dispatcher, fold: _Fold, fairness_factor: float,
-                    max_new: int):
+                    max_new: int, eet_h: Optional[torch.Tensor] = None):
     """Give newly-admitted tasks their site (dispatch-once).
 
     A task is dispatched at the first event where it is PENDING and still
-    siteless; its site never changes afterwards. The context reads the
-    post-admit queue lengths and running machines: tasks dispatched but
-    still pending do not count toward a site's load.
+    siteless; its site never changes afterwards, unless its machine dies
+    and the faults stage clears it. The context reads the post-admit
+    queue lengths and running machines: tasks dispatched but still
+    pending do not count toward a site's load. Under faults it reads the
+    health-masked (B, S, M) table ``eet_h`` and the machines' health.
     """
     new = (st.status == PENDING) & (st.site < 0)
+    health = eet_h is not None
     ctx = dispatch.DispatchContext(
         now=st.now, unassigned=new, task_type=trace.task_type,
         deadline=trace.deadline, qlen=st.qlen, running=st.run_task >= 0,
-        completed=st.completed, arrived=st.arrived, eet=sysarr.eet,
+        completed=st.completed, arrived=st.arrived,
+        eet=eet_h if health else sysarr.eet,
         site_of_machine=fold.owner, n_sites=fold.n_sites,
-        fairness_factor=fairness_factor, eet_min_site=fold.eet_min_site,
+        fairness_factor=fairness_factor,
+        alive=st.alive if health else None,
+        eet_min_site=None if health else fold.eet_min_site,
         max_new=max_new)
     sites = dispatcher.dispatch(ctx).clamp(0, fold.n_sites - 1)
     return st._replace(site=torch.where(new, sites, st.site))
@@ -324,7 +563,8 @@ def _map_action(st: SimState, trace: Trace, sysarr: SystemArrays,
                 select_fn: Callable, fairness_factor: float,
                 fold: Optional[_Fold] = None,
                 rows: Optional[_SiteRows] = None,
-                types32: Optional[torch.Tensor] = None) -> MapAction:
+                types32: Optional[torch.Tensor] = None,
+                eet_h: Optional[torch.Tensor] = None) -> MapAction:
     """The :class:`MapAction` of one batched mapping event (pre-apply).
 
     With a federation the policy runs once over the B * F site views and
@@ -333,6 +573,12 @@ def _map_action(st: SimState, trace: Trace, sysarr: SystemArrays,
     ``drop`` entry, only once it has a site. ``suffered`` is computed
     once per replicate and shared by its F rows. ``types32`` is the
     trace's int32 copy of its types, handed to the policy for the kernels.
+
+    Under faults (``eet_h``, the (B, S, M) health-masked table) the view
+    is masked before the flat / block-fold / masked-fold split: dead
+    machines read avail=BIG, an empty queue, qlen=Q and EET=BIG, as
+    out-of-site machines do, and the site views' tables are folded from
+    ``eet_h`` at this event.
     """
     suffered = fairness.suffered_types(st.completed, st.arrived,
                                        fairness_factor)
@@ -340,13 +586,22 @@ def _map_action(st: SimState, trace: Trace, sysarr: SystemArrays,
     avail_base = torch.maximum(
         torch.where(st.run_task >= 0, st.run_end_exp, now), now)
     pending = st.status == PENDING
+    B, M, Q = st.queue.shape
+    queue, qlen = st.queue, st.qlen
+    if eet_h is not None:
+        avail_base = torch.where(st.alive, avail_base, BIG)
+        queue = torch.where(st.alive[:, :, None], queue, -1)
+        qlen = torch.where(st.alive, qlen, Q)
+        if fold is None:
+            sysarr = sysarr._replace(eet=eet_h)
+        else:
+            rows = rows._replace(sysarr=rows.sysarr._replace(
+                eet=_site_eet(fold, eet_h)))
     if fold is None:
-        view = MachineView(avail_base=avail_base, queue=st.queue,
-                           qlen=st.qlen)
+        view = MachineView(avail_base=avail_base, queue=queue, qlen=qlen)
         return select_fn(st.now, pending, trace.task_type, trace.deadline,
                          view, sysarr, suffered, task_type32=types32)
 
-    B, M, Q = st.queue.shape
     n = pending.shape[1]
     F = fold.n_sites
     at_site = (pending[:, None, :]
@@ -354,16 +609,16 @@ def _map_action(st: SimState, trace: Trace, sysarr: SystemArrays,
     if fold.block:
         w = M // F
         view = MachineView(avail_base=avail_base.reshape(B * F, w),
-                           queue=st.queue.reshape(B * F, w, Q),
-                           qlen=st.qlen.reshape(B * F, w))
+                           queue=queue.reshape(B * F, w, Q),
+                           qlen=qlen.reshape(B * F, w))
     else:
         mem = fold.members
         view = MachineView(
             avail_base=torch.where(mem, avail_base[:, None, :],
                                    BIG).reshape(B * F, M),
-            queue=torch.where(mem[:, :, None], st.queue[:, None],
+            queue=torch.where(mem[:, :, None], queue[:, None],
                               -1).reshape(B * F, M, Q),
-            qlen=torch.where(mem, st.qlen[:, None, :], Q).reshape(B * F, M))
+            qlen=torch.where(mem, qlen[:, None, :], Q).reshape(B * F, M))
     act = select_fn(st.now.repeat_interleave(F), at_site, rows.task_type,
                     rows.deadline, view, rows.sysarr,
                     suffered.repeat_interleave(F, dim=0),
@@ -384,11 +639,48 @@ def _stage_map(st: SimState, trace: Trace, sysarr: SystemArrays,
                select_fn: Callable, fairness_factor: float, n_types: int,
                fold: Optional[_Fold] = None,
                rows: Optional[_SiteRows] = None,
-               types32: Optional[torch.Tensor] = None):
-    """Run the mapping policy and apply its action."""
+               types32: Optional[torch.Tensor] = None,
+               eet_h: Optional[torch.Tensor] = None, backup_k: int = 0):
+    """Run the mapping policy and apply its action; with ``backup_k``,
+    nominate the backups of the tasks it queued."""
     action = _map_action(st, trace, sysarr, select_fn, fairness_factor,
-                         fold, rows, types32)
-    return _apply_action(st, trace, action, n_types)
+                         fold, rows, types32, eet_h)
+    st = _apply_action(st, trace, action, n_types)
+    if backup_k:
+        st = _nominate_backups(st, trace, action, eet_h, backup_k)
+    return st
+
+
+def _nominate_backups(st: SimState, trace: Trace, action: MapAction,
+                      eet_h: torch.Tensor, backup_k: int) -> SimState:
+    """Record ``backup_k`` backup machines for each task queued this event.
+
+    Per queued task, the healthy machines other than its primary that
+    minimize expected completion ``avail_base + EET`` (the health-masked
+    EET; the queue backlog is ignored), by repeated masked argmins with
+    ties to the lowest machine; ``-1`` where fewer are eligible.
+    """
+    B, M, Q = st.queue.shape
+    n = st.status.shape[1]
+    a = action.assign.clamp(min=0)
+    ok = (action.assign >= 0) & (st.status.gather(1, a) == QUEUED)
+    now = st.now[:, None]
+    avail = torch.maximum(
+        torch.where(st.run_task >= 0, st.run_end_exp, now), now)
+    avail = torch.where(st.alive, avail, BIG)
+    score = avail[:, None, :] + type_rows(eet_h, trace.task_type.gather(1, a))
+    cols = torch.arange(M, device=a.device)
+    score = torch.where(cols == cols[:, None], BIG, score)     # (B, M, M)
+    picks = []
+    for _ in range(backup_k):
+        b = score.argmin(2, keepdim=True)
+        has = score.gather(2, b) < BIG
+        picks.append(torch.where(ok[:, :, None] & has, b, -1))
+        score = torch.where(cols == b, BIG, score)
+    backup = torch.cat([st.backup, st.backup[:, :1]], dim=1)
+    rows = torch.where(ok, a, n)[:, :, None].expand(B, M, backup_k)
+    backup = backup.scatter(1, rows, torch.cat(picks, dim=2))
+    return st._replace(backup=backup[:, :n])
 
 
 def _apply_action(st: SimState, trace: Trace, action, n_types: int):
@@ -426,24 +718,35 @@ def _apply_action(st: SimState, trace: Trace, action, n_types: int):
                        cancelled=cancelled)
 
 
-def _stage_start(st: SimState, trace: Trace, sysarr: SystemArrays):
+def _stage_start(st: SimState, trace: Trace, sysarr: SystemArrays,
+                 health: bool = False):
     """Idle machines pop their queue head (one pop per machine per event).
 
     A popped task whose deadline already passed "runs" for zero time with
-    success=False and zero energy; the next iteration finalizes it.
+    success=False and zero energy; the next iteration finalizes it. With
+    ``health``, dead machines never pop and stragglers run every task
+    ``slowdown`` times longer, in actual and in expected time.
     """
     B, M, Q = st.queue.shape
     now = st.now[:, None]
     can = (st.run_task < 0) & (st.qlen > 0)
+    if health:
+        can = can & st.alive
     head = torch.where(can, st.queue[:, :, 0], 0)
     ttype = trace.task_type.gather(1, head)
     dl = trace.deadline.gather(1, head)
     e_act = trace.exec_actual.gather(1, head[:, None, :])[:, 0, :]
     e_exp = sysarr.eet[ttype, torch.arange(M, device=head.device)]
+    if health:
+        fin_act = _fma(e_act, st.slowdown, now)
+        fin_exp = _fma(e_exp, st.slowdown, now)
+    else:
+        fin_act = now + e_act
+        fin_exp = now + e_exp
     dead_on_arrival = now >= dl
-    end_act = torch.where(dead_on_arrival, now, torch.minimum(now + e_act, dl))
-    success = ~dead_on_arrival & (now + e_act <= dl)
-    end_exp = torch.where(dead_on_arrival, now, torch.minimum(now + e_exp, dl))
+    end_act = torch.where(dead_on_arrival, now, torch.minimum(fin_act, dl))
+    success = ~dead_on_arrival & (fin_act <= dl)
+    end_exp = torch.where(dead_on_arrival, now, torch.minimum(fin_exp, dl))
     shifted = torch.cat([st.queue[:, :, 1:], torch.full_like(
         st.queue[:, :, :1], -1)], dim=2)
     return st._replace(
@@ -458,6 +761,11 @@ def _stage_start(st: SimState, trace: Trace, sysarr: SystemArrays):
     )
 
 
+def _fma(a, b, c):
+    """``a * b + c`` with one float32 rounding."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
 def _pick(active: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
     """``a`` on active replicates, else ``b``."""
     mask = active.reshape(active.shape + (1,) * (a.dim() - 1))
@@ -465,8 +773,10 @@ def _pick(active: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
 
 
 def _freeze(active: torch.Tensor, new: SimState, old: SimState) -> SimState:
-    """Keep ``new`` only on active replicates (``vmap``'s frozen carry)."""
-    return SimState(*(_pick(active, a, b) for a, b in zip(new, old)))
+    """Keep ``new`` only on active replicates (``vmap``'s frozen carry);
+    an absent (``None``) field stays absent."""
+    return SimState(*(None if a is None else _pick(active, a, b)
+                      for a, b in zip(new, old)))
 
 
 def _freeze_aux(active: torch.Tensor, new: dict, old: dict) -> dict:
@@ -495,7 +805,7 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
                queue_size: int, fairness_factor: float = 1.0,
                max_steps: int | None = None, dispatcher=None,
                site_of_machine: tuple | None = None,
-               observers: tuple = ()) -> Callable:
+               observers: tuple = (), dynamics=None) -> Callable:
     """``run(trace) -> (SimState, aux)``: the event loop of
     :func:`make_simulator`, returning the final batched state and each
     observer's finalized result by name (``{}`` with no observers)."""
@@ -511,6 +821,9 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
     observers = _bind_observers(observers, fairness_factor=fairness_factor,
                                 queue_size=queue_size, sites=sites)
     gaters = tuple(ob for ob in observers if ob.is_dynamic)
+    dynamics = faults.resolve(dynamics)
+    if getattr(dynamics, "kind", None) == "none":
+        dynamics = None
 
     def run(trace: Trace):
         n = trace.arrival.shape[1]
@@ -519,12 +832,19 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
         # int64 for everything that indexes with them
         types32 = trace.task_type.to(torch.int32).contiguous()
         trace = trace._replace(task_type=trace.task_type.to(torch.int64))
-        st = _init_state(trace, M, queue_size, S, n_sites)
+        h = _make_health(dynamics, select_fn, sites, trace)
+        backup_k = 0 if h is None else h.backup_k
+        wake_ts = None if h is None else h.wake_ts
+        st = _init_state(trace, M, queue_size, S, n_sites, h is not None,
+                         backup_k)
         aux = {ob.name: ob.init(trace, sysarr) for ob in observers}
         rows, max_new = None, 0
         if fold is not None:
             rows = _site_rows(fold, trace, types32)
             max_new = _max_admissions(trace.arrival)
+            if h is not None:
+                # the orphans of the machines that die at one event
+                max_new = min(n, max_new + M * (queue_size + 1))
 
         def notify(stage, aux, new):
             return {ob.name: ob.on_event(stage, aux[ob.name], new, trace,
@@ -535,9 +855,9 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
         while True:
             halted = None
             for ob in gaters:
-                h = ob.halted(aux[ob.name], st)
-                halted = h if halted is None else halted | h
-            t = _next_event_time(st, trace, halted)
+                g = ob.halted(aux[ob.name], st)
+                halted = g if halted is None else halted | g
+            t = _next_event_time(st, trace, halted, wake_ts)
             active = torch.isfinite(t) & (st.steps < cap)
             if it % CHECK_EVERY == 0 and not bool(active.any()):
                 break
@@ -546,14 +866,22 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
             new_aux = notify("finalize", aux, new)
             new = _stage_admit(new, trace, halted)
             new_aux = notify("admit", new_aux, new)
+            eet_h = None
+            if h is not None:
+                new = _stage_faults(new, trace, sysarr, h)
+                new_aux = notify("faults", new_aux, new)
+                eet_h = _health_eet(sysarr, new)
             if fold is not None:
                 new = _stage_dispatch(new, trace, sysarr, dispatcher, fold,
-                                      fairness_factor, max_new)
+                                      fairness_factor, max_new, eet_h)
+            elif h is not None:
+                # the flat dispatch: orphans go back to site 0
+                new = new._replace(site=new.site.clamp(min=0))
             new_aux = notify("dispatch", new_aux, new)
             new = _stage_map(new, trace, sysarr, select_fn, fairness_factor,
-                             S, fold, rows, types32)
+                             S, fold, rows, types32, eet_h, backup_k)
             new_aux = notify("map", new_aux, new)
-            new = _stage_start(new, trace, sysarr)
+            new = _stage_start(new, trace, sysarr, h is not None)
             new_aux = notify("start", new_aux, new)
             new = new._replace(steps=new.steps + 1)
             st = _freeze(active, new, st)
@@ -570,7 +898,7 @@ def make_simulator(select_fn: Callable, sysarr: SystemArrays, *,
                    queue_size: int, fairness_factor: float = 1.0,
                    max_steps: int | None = None, dispatcher=None,
                    site_of_machine: tuple | None = None,
-                   observers: tuple = ()) -> Callable:
+                   observers: tuple = (), dynamics=None) -> Callable:
     """Build ``simulate(trace)`` for one mapping policy.
 
     ``trace`` is a batched :class:`Trace` (leaves (B, N) and (B, N, M))
@@ -587,11 +915,18 @@ def make_simulator(select_fn: Callable, sysarr: SystemArrays, *,
     instances. With ``observers=()`` the simulator returns bare
     :class:`Metrics`; with observers it returns ``(Metrics, aux)``, where
     ``aux`` maps each observer's name to its finalized result.
+
+    ``dynamics`` is the machine-failure process, a registered
+    :mod:`repro_torch.core.faults` name or instance. ``None`` or
+    ``"none"`` skips the faults stage entirely; any other turns on health
+    masking at the dispatch, map and start stages and orphan re-dispatch
+    at the ``faults`` stage. A ``with_backup`` policy also nominates
+    backups (inert without a dynamics).
     """
     run = _make_loop(select_fn, sysarr, queue_size=queue_size,
                      fairness_factor=fairness_factor, max_steps=max_steps,
                      dispatcher=dispatcher, site_of_machine=site_of_machine,
-                     observers=observers)
+                     observers=observers, dynamics=dynamics)
 
     def simulate(trace: Trace):
         st, aux = run(trace)
@@ -602,9 +937,19 @@ def make_simulator(select_fn: Callable, sysarr: SystemArrays, *,
 
 
 def _metrics(st: SimState, sysarr: SystemArrays) -> Metrics:
-    """The :class:`Metrics` of a final batched state."""
+    """The :class:`Metrics` of a final batched state.
+
+    Under faults the idle energy is summed left to right with an FMA per
+    machine, as the reference's compiled sum does up to 8 machines, so
+    every faulted energy is bit for bit the reference's there; without
+    faults it keeps the sum the port always took (ROADMAP C).
+    """
     makespan = st.now
-    e_idle = (sysarr.p_idle * (makespan[:, None] - st.busy_time)).sum(1)
+    idle = makespan[:, None] - st.busy_time
+    if st.alive is None:
+        e_idle = (sysarr.p_idle * idle).sum(1)
+    else:
+        e_idle = seq_dot(sysarr.p_idle, idle)
     return Metrics(
         completed_by_type=st.completed,
         missed_by_type=st.missed,
@@ -643,7 +988,7 @@ def _resolve_dispatcher(dispatcher, use_fused_map: bool):
 
 
 def simulate_batch(traces: Trace, spec, heuristic, *, observers=(),
-                   max_steps=None, dispatcher=None,
+                   max_steps=None, dispatcher=None, dynamics=None,
                    use_fused_map: bool = False,
                    use_fused_phase1: bool = False, device=None):
     """Simulate a batch of traces (leaves (B, N), (B, N, M)) under one
@@ -654,8 +999,10 @@ def simulate_batch(traces: Trace, spec, heuristic, *, observers=(),
 
     ``spec.site_of_machine`` (if set) partitions the machines into sites
     served through ``dispatcher`` (a registered name or a dispatcher;
-    ``None`` = ``sticky``). ``use_fused_map`` runs the map decision and
-    the dispatcher's balance walk through the kernels.
+    ``None`` = ``sticky``). ``dynamics`` (a registered name or instance;
+    ``None`` = ``"none"``) injects machine failures at the ``faults``
+    stage. ``use_fused_map`` runs the map decision and the dispatcher's
+    balance walk through the kernels.
     """
     dev = resolve_device(device)
     sim = make_simulator(
@@ -663,18 +1010,19 @@ def simulate_batch(traces: Trace, spec, heuristic, *, observers=(),
         spec.as_torch(dev), queue_size=spec.queue_size,
         fairness_factor=float(spec.fairness_factor), max_steps=max_steps,
         dispatcher=_resolve_dispatcher(dispatcher, use_fused_map),
-        site_of_machine=spec.site_of_machine, observers=observers)
+        site_of_machine=spec.site_of_machine, observers=observers,
+        dynamics=dynamics)
     return sim(_to_device(traces, dev))
 
 
 def simulate(trace: Trace, spec, heuristic, *, observers=(), max_steps=None,
-             dispatcher=None, use_fused_map: bool = False,
+             dispatcher=None, dynamics=None, use_fused_map: bool = False,
              use_fused_phase1: bool = False, device=None):
     """One trace (leaves (N,), (N, M)), one SystemSpec, one heuristic:
     Metrics, or ``(Metrics, aux)`` with observers, without the batch dim."""
     batched = Trace(*(x[None] for x in trace))
     out = simulate_batch(batched, spec, heuristic, observers=observers,
                          max_steps=max_steps, dispatcher=dispatcher,
-                         use_fused_map=use_fused_map,
+                         dynamics=dynamics, use_fused_map=use_fused_map,
                          use_fused_phase1=use_fused_phase1, device=device)
     return observe.tree_map(lambda x: x[0], out)

@@ -13,11 +13,12 @@ Built-ins, all fixed-shape tensors batched over the engine's replicates:
     status, machine and site;
   * ``energy_budget`` — :class:`EnergyBudget`, the dynamic observer: a
     finite battery capacity the engine consults to stop admitting work
-    (inert at the default ``capacity=inf``).
+    (inert at the default ``capacity=inf``);
+  * ``health`` — :class:`Health`, K-bucket healthy-machine, site-heartbeat
+    and orphan-pressure series of the faults subsystem.
 
-The reference's ``health`` and ``network`` observers wait for the faults
-and network subsystems (ROADMAP A4, A5); their JSON kinds raise
-``KeyError`` here.
+The reference's ``network`` observer waits for the network subsystem
+(ROADMAP A5); its JSON kind raises ``KeyError`` here.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from repro_torch.core.observe.base import (
     tree_map,
 )
 from repro_torch.core.observe.energy import EnergyBudget
+from repro_torch.core.observe.health import Health
 from repro_torch.core.observe.registry import (
     get,
     is_registered,
@@ -42,6 +44,7 @@ from repro_torch.core.observe.timeline import FairnessTrajectory, Timeline
 __all__ = [
     "EnergyBudget",
     "FairnessTrajectory",
+    "Health",
     "Observer",
     "TaskLog",
     "Timeline",
@@ -65,10 +68,10 @@ _KINDS = {
     "fairness_trajectory": FairnessTrajectory,
     "task_log": TaskLog,
     "energy_budget": EnergyBudget,
-    "health": None,
+    "health": Health,
     "network": None,
 }
-_WAITING = {"health": "A4, faults", "network": "A5, network"}
+_WAITING = {"network": "A5, network"}
 
 
 def from_json_dict(d: dict):
@@ -105,6 +108,7 @@ for _name, _ob in [
     ("fairness_trajectory", FairnessTrajectory()),
     ("task_log", TaskLog()),
     ("energy_budget", EnergyBudget()),
+    ("health", Health()),
 ]:
     register(_name, _ob)
 del _name, _ob

@@ -14,7 +14,8 @@ Lifecycle, all inside the engine's loop:
     engine's shared tables, ``eet`` (S, M) and the powers (M,).
   * ``on_event(stage, aux, st, trace, sysarr) -> aux`` — called after
     every stage of every event, in :data:`repro_torch.core.engine.STAGES`
-    order (``finalize``/``admit``/``dispatch``/``map``/``start``; the
+    order (``finalize``/``admit``/``faults``/``dispatch``/``map``/
+    ``start``; ``faults`` only with a machine dynamics attached, and the
     flat system has no dispatch stage of its own but is notified there
     all the same).
   * ``finalize(aux, st) -> tree`` — shape the carried state into the

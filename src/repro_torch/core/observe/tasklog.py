@@ -12,7 +12,9 @@ make it: ``map_time`` at ``map`` (the only stage that queues a task;
 a task queued and started in one event is QUEUED only there), and
 ``start_time``, ``end_time`` and ``machine`` at ``start`` (RUNNING is set
 only there, and a terminal status, whether set at ``finalize``,
-``admit`` or ``map``, is still there at ``start``).
+``admit``, ``faults`` or ``map``, is still there at ``start``). A task
+that a failover queues at ``faults`` was running before, so it was mapped
+already. ``machine`` is the last machine the task started on.
 """
 from __future__ import annotations
 
@@ -41,7 +43,8 @@ class TaskLog(Observer):
       ``site``       int32, the federation site it was dispatched to
                      (−1 = never dispatched; 0 on single-site systems)
       ``status``     int32, final status code
-      ``retries``    int32, zeros (the port has no machine dynamics)
+      ``retries``    int32, orphan re-dispatches the task suffered from
+                     machine failures (0 with no dynamics attached)
       ``ready_time`` f32, −1 (the port has no network)
     """
 
@@ -93,7 +96,8 @@ class TaskLog(Observer):
             "machine": aux["machine"].to(i32),
             "site": site.to(i32),
             "status": st.status.to(i32),
-            "retries": torch.zeros_like(st.status, dtype=i32),
+            "retries": (torch.zeros_like(st.status, dtype=i32)
+                        if st.retries is None else st.retries.to(i32)),
             "ready_time": torch.full_like(aux["map_time"], -1.0),
         }
 

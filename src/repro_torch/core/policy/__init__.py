@@ -119,10 +119,17 @@ def with_fused_map(pol):
     """Run a policy's whole map decision through the ``map_fused`` kernels.
 
     No-op for policies outside the kernel's kind space or without a
-    ``describe()``.
+    ``describe()``. A ``with_backup`` policy keeps its wrapper outermost
+    (the engine reads ``backup_k`` off it) around a fused base.
     """
+    import dataclasses
+
+    from repro_torch.core.faults.backup import BackupPolicy
+
     if isinstance(pol, str):
         pol = get(pol)
+    if isinstance(pol, BackupPolicy):
+        return dataclasses.replace(pol, base=with_fused_map(pol.base))
     fn = getattr(pol, "describe", None)
     if fn is None or not supports_fused_map(fn()):
         return pol

@@ -60,6 +60,7 @@ class PolicyDesc(NamedTuple):
     phase2_key: str
     drop_rule: str
     fairness: bool = False
+    backup_k: int = 0  # k-failure backup nominations (faults.with_backup)
 
 
 def phase2(nominee: torch.Tensor, key: torch.Tensor, qfree: torch.Tensor):

@@ -7,8 +7,9 @@ it once it is inside the engine.
 
 A ``SystemSpec`` may partition its machines into federation sites
 (``site_of_machine``) and its sites into edge-cloud tiers
-(``tier_of_site``); ``SimState`` carries each task's site. It has none of
-the fault or network fields.
+(``tier_of_site``); ``SimState`` carries each task's site, and the health
+fields of the faults subsystem when a machine dynamics is attached. It has
+none of the network fields.
 """
 from __future__ import annotations
 
@@ -161,6 +162,11 @@ class SimState(NamedTuple):
     each with a leading replicate dim B. Every update goes through
     ``where(active, new, old)``, so a replicate whose loop has ended stays
     as it was, as under ``jax.vmap`` of the reference's ``while_loop``.
+
+    The health fields are ``None`` unless a machine dynamics is attached
+    (:mod:`repro_torch.core.faults`), so the loop without one carries and
+    freezes nothing for them; ``backup`` is ``None`` too unless the policy
+    nominates backups (``with_backup``).
     """
 
     now: torch.Tensor          # (B,) f32
@@ -181,6 +187,10 @@ class SimState(NamedTuple):
     cancelled: torch.Tensor    # (B, S) int64
     arrived: torch.Tensor      # (B, S) int64
     steps: torch.Tensor        # (B,) int64
+    alive: Optional[torch.Tensor] = None     # (B, M) bool machine health
+    slowdown: Optional[torch.Tensor] = None  # (B, M) f32 EET scale factors
+    retries: Optional[torch.Tensor] = None   # (B, N) int64 orphan count
+    backup: Optional[torch.Tensor] = None    # (B, N, k) int64, -1 = none
 
 
 class Metrics(NamedTuple):

@@ -24,13 +24,16 @@ def _as_tensor(x) -> torch.Tensor:
 
 
 def simulate_sweep(traces: Trace, system: SystemSpec, heuristic_names, *,
-                   dispatcher=None, use_fused_phase1: bool = False,
+                   dispatcher=None, dynamics=None,
+                   use_fused_phase1: bool = False,
                    use_fused_map: bool = False, max_steps=None, device=None,
                    observers=(), run_info: dict | None = None):
     """Simulate a flat batch of traces (leaves (B, N), (B, N, M)) under
     every heuristic, on ``device`` (``None`` = CUDA). A federated
     ``system`` dispatches through ``dispatcher`` (``None`` = ``sticky``);
     ``use_fused_map`` also puts its balance walk on the kernel.
+    ``dynamics`` (a registered name or instance; ``None`` = ``"none"``)
+    injects machine failures; every heuristic sees the same ones.
 
     Returns Metrics as numpy arrays with leaves (H, B, ...), or
     ``(Metrics, aux)`` with ``observers`` attached, every aux leaf a
@@ -45,7 +48,8 @@ def simulate_sweep(traces: Trace, system: SystemSpec, heuristic_names, *,
         it0 = engine.COUNTS["loop_iterations"]
         out = engine.simulate_batch(
             traces, system, name, observers=observers, max_steps=max_steps,
-            dispatcher=dispatcher, use_fused_map=use_fused_map,
+            dispatcher=dispatcher, dynamics=dynamics,
+            use_fused_map=use_fused_map,
             use_fused_phase1=use_fused_phase1, device=dev)
         per_h.append(observe.tree_map(lambda x: x.cpu().numpy(), out))
         if run_info is not None:
@@ -80,6 +84,7 @@ def run_sweep(spec: SweepSpec, *, traces: Trace | None = None,
     observers = spec.resolve_observers()
     out = simulate_sweep(
         flat, system, spec.heuristics, dispatcher=spec.dispatcher,
+        dynamics=spec.resolve_dynamics(),
         use_fused_phase1=spec.use_fused_phase1,
         use_fused_map=spec.use_fused_map, max_steps=spec.max_steps,
         device=dev, observers=observers, run_info=run_info)

@@ -1,10 +1,11 @@
 """Sweep configuration (counterpart of ``repro/experiments/spec.py``).
 
 A :class:`SweepSpec` fixes a batched Monte-Carlo experiment — system,
-arrival rates, replicates, heuristics, seed, dispatcher — so a sweep is
-reproducible from its spec alone. Heuristic names resolve through
-:mod:`repro_torch.core.policy`, dispatcher names through
-:mod:`repro_torch.core.dispatch`, system names through the fleet
+arrival rates, replicates, heuristics, seed, dispatcher, machine
+dynamics — so a sweep is reproducible from its spec alone. Heuristic
+names resolve through :mod:`repro_torch.core.policy`, dispatcher names
+through :mod:`repro_torch.core.dispatch`, dynamics names through
+:mod:`repro_torch.core.faults`, system names through the fleet
 registry (``"paper"``, ``"aws"``, ``"paper_x8"``, ...). Only the
 ``"poisson"`` scenario is ported.
 """
@@ -53,9 +54,13 @@ class SweepSpec:
     the port's CUDA kernels. ``dispatcher`` is the federation's
     site-selection rule, a registered name or a dispatcher instance; a
     single-site system has no dispatch stage, so it changes nothing
-    there. ``observers`` are engine observers, registered names
-    (built-ins: ``"timeline"``, ``"fairness_trajectory"``,
-    ``"task_log"``, ``"energy_budget"``) or
+    there. ``dynamics`` is the machine-failure process, a registered name
+    (built-ins: ``"none"``, ``"bernoulli_updown"``, ``"site_outage"``,
+    ``"degrade"``) or a ``faults.MachineDynamics`` instance; ``"none"``
+    runs the sweep without faults. ``observers`` are engine observers,
+    registered names (built-ins: ``"timeline"``,
+    ``"fairness_trajectory"``, ``"task_log"``, ``"energy_budget"``,
+    ``"health"``) or
     :class:`repro_torch.core.observe.Observer` instances; their results
     come back on :attr:`SweepResult.aux` stacked under the same (H, R, K)
     dims as the metrics.
@@ -76,6 +81,7 @@ class SweepSpec:
     scenario: str = "poisson"
     dispatcher: Union[str, object] = "sticky"
     observers: tuple = ()
+    dynamics: Union[str, object] = "none"
 
     def __post_init__(self):
         object.__setattr__(self, "rates",
@@ -114,6 +120,20 @@ class SweepSpec:
             raise ValueError(
                 f"dispatcher must be a registered name or a "
                 f"dispatch.Dispatcher, got {self.dispatcher!r}")
+        from repro_torch.core import faults
+
+        if isinstance(self.dynamics, str):
+            name = self.dynamics.strip().lower()
+            if not faults.is_registered(name):
+                raise ValueError(
+                    f"unknown dynamics {self.dynamics!r}; "
+                    f"choose from {faults.list_dynamics()} "
+                    f"(or faults.register(...) your own)")
+            object.__setattr__(self, "dynamics", name)
+        elif not callable(getattr(self.dynamics, "step", None)):
+            raise ValueError(
+                f"dynamics must be a registered name or a "
+                f"faults.MachineDynamics, got {self.dynamics!r}")
         from repro_torch.core import observe
 
         obs = []
@@ -146,6 +166,12 @@ class SweepSpec:
 
         return observe.resolve(self.observers)
 
+    def resolve_dynamics(self):
+        """Materialize the :class:`repro_torch.core.faults.MachineDynamics`."""
+        from repro_torch.core import faults
+
+        return faults.resolve(self.dynamics)
+
     def resolve_scenario(self):
         from repro_torch import scenarios
 
@@ -176,7 +202,7 @@ class SweepSpec:
 
     def to_json_dict(self) -> dict:
         """JSON-ready record of the spec (written into ``sweep.json``)."""
-        from repro_torch.core import dispatch
+        from repro_torch.core import dispatch, faults
 
         d = {f.name: getattr(self, f.name)
              for f in dataclasses.fields(self)}
@@ -192,6 +218,8 @@ class SweepSpec:
             }
         if not isinstance(self.dispatcher, str):
             d["dispatcher"] = dispatch.to_json_dict(self.dispatcher)
+        if not isinstance(self.dynamics, str):
+            d["dynamics"] = faults.to_json_dict(self.dynamics)
         observers = []
         for ob in self.observers:
             if isinstance(ob, str):

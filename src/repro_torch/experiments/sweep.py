@@ -9,7 +9,8 @@ comma list (``2,3,4.5``) or an inclusive ``start:stop:step`` range.
 ``--fused-map`` runs the whole map decision (and a federation's balance
 walk) through the ``map_fused`` kernels, ``--fused-phase1`` ELARE's
 Phase I through ``phase1_map``. ``--dispatcher`` picks a federation's
-site-selection rule (``--list-dispatchers``). ``--observers`` attaches
+site-selection rule (``--list-dispatchers``). ``--dynamics`` injects a
+machine-failure process (``--list-dynamics``). ``--observers`` attaches
 engine observers (``--list-observers``), whose results are written as
 ``observers.json`` and, for ``timeline``, ``timeline.csv``.
 Unknown names and bad grids exit with an ``error:`` line and status 2.
@@ -21,7 +22,7 @@ import sys
 import time
 
 from repro_torch import scenarios
-from repro_torch.core import dispatch, observe, policy
+from repro_torch.core import dispatch, faults, observe, policy
 from repro_torch.core.device import resolve_device
 from repro_torch.experiments.results import SweepResult
 from repro_torch.experiments.runner import run_sweep
@@ -65,6 +66,12 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
     ap.add_argument("--list-dispatchers", action="store_true",
                     help="list the registered federation dispatchers and "
                          "exit")
+    ap.add_argument("--dynamics", default="none",
+                    help="machine-failure process to inject (default: none;"
+                         " see --list-dynamics). 'none' runs the sweep "
+                         "without faults.")
+    ap.add_argument("--list-dynamics", action="store_true",
+                    help="list the registered machine dynamics and exit")
     ap.add_argument("--observers", default="",
                     help="comma list of registered engine observers to "
                          "attach (e.g. timeline,task_log; see "
@@ -102,6 +109,9 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
     if args.list_observers:
         print_observer_list()
         raise SystemExit(0)
+    if args.list_dynamics:
+        print_dynamics_list()
+        raise SystemExit(0)
     heuristics = tuple(
         h.strip() for h in args.heuristics.split(",") if h.strip()
     )
@@ -117,6 +127,10 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
         ap.error(f"unknown dispatcher {args.dispatcher!r}; registered "
                  "dispatchers: " + ", ".join(dispatch.list_dispatchers())
                  + " (run with --list-dispatchers for details)")
+    if not faults.is_registered(args.dynamics):
+        ap.error(f"unknown dynamics {args.dynamics!r}; registered dynamics: "
+                 + ", ".join(faults.list_dynamics())
+                 + " (run with --list-dynamics for details)")
     observers = tuple(
         o.strip() for o in args.observers.split(",") if o.strip())
     unknown = [o for o in observers if not observe.is_registered(o)]
@@ -140,6 +154,7 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
             use_fused_map=args.fused_map,
             dispatcher=args.dispatcher,
             observers=observers,
+            dynamics=args.dynamics,
         )
         args.device = resolve_device(args.device)
     except (ValueError, RuntimeError) as e:
@@ -164,6 +179,13 @@ def print_dispatcher_list(file=None) -> None:
     file = file if file is not None else sys.stdout
     for name in dispatch.list_dispatchers():
         print(f"{name:14s} {dispatch.describe(name)}", file=file)
+
+
+def print_dynamics_list(file=None) -> None:
+    """One line per registered machine dynamics: name + description."""
+    file = file if file is not None else sys.stdout
+    for name in faults.list_dynamics():
+        print(f"{name:18s} {faults.describe(name)}", file=file)
 
 
 def print_observer_list(file=None) -> None:
@@ -195,6 +217,8 @@ def main(argv=None) -> SweepResult:
     n_sites = spec.resolve_system().n_sites
     fed = (f" sites={n_sites} dispatcher={spec.dispatcher}"
            if n_sites > 1 else "")
+    if spec.dynamics != "none":
+        fed += f" dynamics={spec.dynamics}"
     print(f"sweep: {len(spec.heuristics)} heuristics x "
           f"{len(spec.rates)} rates x {spec.reps} reps "
           f"({n} traces of {spec.n_tasks} tasks) on system={args.system}"

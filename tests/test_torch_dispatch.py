@@ -216,6 +216,57 @@ def test_registry_and_resolve():
 def test_context_refuses_unported_fields():
     a = _arrays(PARTITIONS["F2"], seed=0)
     ctx = _port_ctx(a)
-    with pytest.raises(NotImplementedError, match="faults"):
-        dataclasses.replace(ctx, alive=torch.ones(B, 8, dtype=torch.bool))
+    for name in ("xfer_lat", "xfer_energy"):
+        with pytest.raises(NotImplementedError, match="network"):
+            dataclasses.replace(ctx, **{name: torch.ones(B, N, 2)})
     assert ctx.site_alive is None
+    alive = torch.ones(B, 8, dtype=torch.bool)
+    alive[0, :4] = False
+    got = dataclasses.replace(ctx, alive=alive).site_alive
+    assert got.tolist() == [[False, True]] + [[True, True]] * (B - 1)
+
+
+def _health_arrays(a, seed):
+    """Per-replicate health for :func:`_arrays`: random dead machines (a
+    whole site down in replicate 0, every machine of the last site up),
+    and each replicate's EET masked by it and scaled by stragglers, as
+    the engine hands it over."""
+    r = np.random.default_rng(seed)
+    sites = a["site_of_machine"]
+    alive = r.random((B, len(sites))) < 0.6
+    alive[0, sites == 0] = False
+    alive[:, sites == sites.max()] = True
+    slow = np.where(r.random((B, len(sites))) < 0.3, np.float32(1.5),
+                    np.float32(1.0)).astype(np.float32)
+    eet = np.where(alive[:, None, :], a["eet"][None] * slow[:, None, :],
+                   np.float32(1e30)).astype(np.float32)
+    return alive, eet
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+@pytest.mark.parametrize("kind", BUILTINS)
+@pytest.mark.parametrize("name", list(PARTITIONS))
+def test_dispatchers_match_jax_under_faults(name, kind, fused):
+    """Under machine dynamics: the site heartbeat, the dead-site penalty
+    of the balance walk, ``health_aware``'s re-route and per-replicate
+    site minima (``min_eet``, ``tier_aware``) equal the JAX dispatcher's
+    on each replicate's own health and masked EET."""
+    a = _arrays(PARTITIONS[name], seed=11 + len(kind))
+    alive, eet = _health_arrays(a, seed=len(name))
+    ctx = dataclasses.replace(_port_ctx(a), alive=torch.as_tensor(alive),
+                              eet=torch.as_tensor(eet))
+    d = dispatch.get(kind)
+    if fused:
+        d = dispatch.with_fused_balance(d)
+    got = np.broadcast_to(d.dispatch(ctx).numpy(), (B, N))
+    ref = jdispatch.get(kind)
+    for b in range(B):
+        jctx = dataclasses.replace(_jax_ctx(a, b, alive[b]),
+                                   eet=jnp.asarray(eet[b]))
+        np.testing.assert_array_equal(
+            got[b], np.asarray(ref.dispatch(jctx)),
+            err_msg=f"{kind} replicate {b}")
+        np.testing.assert_array_equal(ctx.site_alive[b].numpy(),
+                                      np.asarray(jctx.site_alive))
+        np.testing.assert_array_equal(ctx.eet_min_by_site[b].numpy(),
+                                      np.asarray(jctx.eet_min_by_site))

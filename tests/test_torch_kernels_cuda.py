@@ -693,3 +693,53 @@ def test_observed_fused_run_matches_observed_plain_run_on_card(system,
             assert torch.equal(aux_k[name][leaf], aux_p[name][leaf]), \
                 (system, name, leaf)
     assert bool(aux_k["energy_budget"]["exhausted"].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system,heuristic,dispatcher,dynamics,fused", [
+    ("paper_x2", "backup1", "health_aware", "churn", "map"),
+    ("paper_x2", "FELARE", "fair_spill", "outage", "map"),
+    ("paper", "ELARE", None, "degrade", "phase1"),
+])
+def test_faulted_fused_run_matches_faulted_plain_run_on_card(
+        system, heuristic, dispatcher, dynamics, fused):
+    """Under machine faults the kernel path equals the plain path on the
+    card, every Metrics field and aux leaf bit for bit (task_log with its
+    retries, the health series): paper_x2 under churn with
+    ``with_backup(FELARE, 1)`` and under a site outage, and flat ELARE on
+    ``phase1_map`` with a straggler at 2.0 x."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from repro_torch import scenarios
+    from repro_torch.core import engine, faults
+
+    dyn = {"churn": faults.BernoulliUpDown(p_fail=0.02, p_recover=0.2),
+           "outage": faults.SiteOutage(outages=((0, 0.25, 0.5),)),
+           "degrade": faults.Degrade(factor=2.0, machines=(1,))}[dynamics]
+    pol = (faults.with_backup("FELARE", 1) if heuristic == "backup1"
+           else heuristic)
+    spec = scenarios.get_fleet(system).build()
+    F = spec.n_sites
+    traces = scenarios.DEFAULT.stack(0, (2.0 * F, 6.0 * F), 3, 300, spec.eet,
+                                     device="cuda")
+    flat = type(traces)(*(x.reshape((-1,) + x.shape[2:]) for x in traces))
+    mf.LAUNCHES.update({k: 0 for k in mf.LAUNCHES})
+    phase1_map.LAUNCHES["phase1_map"] = 0
+    runs = [engine.simulate_batch(
+        flat, spec, pol, observers=("task_log", "health"),
+        dispatcher=dispatcher, dynamics=dyn, device="cuda",
+        use_fused_map=kernel and fused == "map",
+        use_fused_phase1=kernel and fused == "phase1")
+        for kernel in (True, False)]
+    launched = (phase1_map.LAUNCHES["phase1_map"] if fused == "phase1"
+                else mf.LAUNCHES["map_decide"])
+    assert launched > 0
+    (mk, aux_k), (mp, aux_p) = runs
+    for a, b, f in zip(mk, mp, mk._fields):
+        assert torch.equal(a, b), f
+    for name in aux_k:
+        for leaf in aux_k[name]:
+            assert torch.equal(aux_k[name][leaf], aux_p[name][leaf]), \
+                (system, name, leaf)
+    if dynamics != "degrade":
+        assert int(aux_k["task_log"]["retries"].sum()) > 0

@@ -73,10 +73,8 @@ def test_fused_phase1_matches_reference(name):
 def test_registry_and_describe():
     assert tpolicy.list_policies() == jpolicy.list_policies()
     for name in HEURISTICS:
-        # the reference's fifth field (backup_k) belongs to the faults
-        # subsystem, which the port does not cover yet
         assert tuple(tpolicy.describe(name)) == \
-            tuple(jpolicy.describe(name))[:4]
+            tuple(jpolicy.describe(name))
     with pytest.raises(KeyError, match="unknown policy"):
         tpolicy.get("BOGUS")
 
