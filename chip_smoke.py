@@ -11,8 +11,13 @@
 The port's float32 products stay in float32 (TF32 is switched off for
 matmuls and cuDNN alike).
 
-Phases, in the order they run, one JSON line each; any failed check
-raises, so the script exits non-zero and prints no result line:
+Phases, one JSON line each; any failed check raises, so the script
+exits non-zero and prints no result line. Phases 1-8 run in this order
+in this process; phases 9-19 run in four processes at once on the same
+card (``GROUPS``: the flat sweep; the flat sweep observed and the
+faulted runs' parity; the paper_x8 sweeps, observed and faulted; the
+tiered_x4 sweep and the network), each holding its own launch counts,
+and their lines arrive interleaved:
 
   1. env      torch and CUDA versions, the card's name and power limit;
   2. build    nvcc builds the kernels from ``src/repro_torch/kernels/csrc``,
@@ -75,15 +80,17 @@ raises, so the script exits non-zero and prints no result line:
               then flash attention's float32 instantiation at the same
               shape, and decode attention with 2, 4 and 8 query heads per
               kv head;
-  6. profile  where one batched event's time goes: the first 64
+  6. profile  where one batched event's time goes (the device's records
+              alone): the first 64
               iterations of the flat FELARE and phase1 ELARE sweeps, of
               the flat FELARE sweep with all four observers and with
               task_log alone, and of the federated FELARE + fair_spill
               sweep on paper_x2 and paper_x8 under torch.profiler (wall vs
               device-busy time, kernels per iteration, which must not grow
-              with the sites), and of the faulted paper_x8 sweeps (FELARE +
+              with the sites), of the faulted paper_x8 sweeps (FELARE +
               health_aware under the outages, FELARE + fair_spill under
-              churn; see phase 16);
+              churn; see phase 16), and of tiered_x4 FELARE + fair_spill
+              without a network and under phase 18's;
   7. serve    zamba2-2.7b at its published width (54 layers, d_model 2560,
               bf16, random weights from torch.Generator seed 0) serves 8
               requests of 1024 prompt tokens (numpy seed 0) for 64 greedy
@@ -119,13 +126,15 @@ raises, so the script exits non-zero and prints no result line:
  11. fed      the federated sweep: paper_x8 (8 sites of the 4x4 system,
               total rates 16-64, 30 replicates of 2000 tasks) with FELARE
               + fair_spill and ELARE + least_queued, then tiered_x4 (four
-              unequal sites, masked views) with FELARE + least_queued, all
+              unequal sites, masked views; 10 replicates of 500 tasks)
+              with FELARE + least_queued, all
               on the fused kernels: map_decide and balance_scan launch
               once per batched event, not once per site;
  12. fed_parity  the plain path on the card gives identical counters and
               makespans, and a 2 x 2 subset (each trace cut to its first
-              1000 tasks) gives the same counters on the CPU;
- 13. observe  the flat sweep's FELARE run again, on the fused kernels with
+              700 tasks) gives the same counters on the CPU;
+ 13. observe  the flat sweep's FELARE run again, unobserved and then on
+              the fused kernels with
               all four observers (task_log, timeline, fairness_trajectory,
               energy_budget unset): Metrics identical to the unobserved
               run, map_decide and evict_stats on every batched event, the
@@ -137,7 +146,7 @@ raises, so the script exits non-zero and prints no result line:
  14. observe_fed  paper_x8 FELARE + fair_spill on the fused kernels
               (balance_scan on the card) with task_log and the per-site
               timeline, on the first min(--fed-reps, 10) replicates of the
-              federated traces, each cut to its first 1000 tasks: every
+              federated traces, each cut to its first 700 tasks: every
               kernel on every batched event, the final task_log.site equal
               to the engine's final SimState.site;
  15. observe_parity  the plain path on the card gives every aux leaf of
@@ -146,7 +155,7 @@ raises, so the script exits non-zero and prints no result line:
               and fairness_trajectory, energies within rel 1e-5;
  16. faults   machine faults on the kernels, the dynamics from fixed
               parameters, on the first 10 replicates of the flat and
-              federated traces cut to 1000 tasks (paper_x2's drawn alike):
+              federated traces cut to 700 tasks (paper_x2's drawn at 500):
               paper_x8 under the outages of sites 0 and 3 (a quarter of
               the horizon each) with FELARE + health_aware (task_log and
               health attached) and with FELARE + sticky (on-time share
@@ -165,11 +174,31 @@ raises, so the script exits non-zero and prints no result line:
               with dynamics="none", gives the Metrics of the fed phase's
               run (its 2 x 2 subset) and of phase 14's on the same traces;
  17. faults_parity  the faulted runs but the sticky one, on 5 replicates
-              cut to 300 tasks, through the kernels and the plain path
+              cut to 150 tasks, through the kernels and the plain path
               on the card: every Metrics field and aux leaf identical
               (float32 times, task_log with retries, health); the outage
               run's 2 x 2 subset on the CPU gives identical counters,
-              task_log and health, energies within rel 1e-5.
+              task_log and health, energies within rel 1e-5;
+ 18. network  the edge-cloud network at the repo's documented
+              configuration (benchmarks/ablations.py::tiered_network,
+              full=True): tiered_x4 under the "harsh" tiered matrices, 6
+              tasks/s, 12 replicates of 2000 tasks, ELARE + tier_aware,
+              FELARE + tier_aware and FELARE + fair_spill on the kernels
+              with task_log and the network series. Each run's launch
+              counts, zeroed just before it, show every kernel of its path
+              on every batched event; no task starts before it lands; per
+              arm the on-time share, the per-type completion std, the
+              transfer energy per tier and the tasks cancelled in transit;
+              then the claim of benchmarks/TIERS_BASELINE.json must hold
+              (FELARE + tier_aware's std at most ELARE + tier_aware's +
+              0.02, its on-time share above FELARE + fair_spill's);
+ 19. network_parity  on 5 replicates of 300 tasks under the registered
+              tiered network, FELARE + fair_spill (all three kernels of
+              the path) through the kernels and the plain path on the
+              card: every
+              Metrics field and aux leaf identical (ready times, the
+              network series); network="none" on the fed phase's tiered_x4
+              traces gives that phase's Metrics.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, one
 ``{"kernels": [...]}`` line (a row with ``by_shape`` gives each path
@@ -183,9 +212,11 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 from functools import partial
 
@@ -206,24 +237,29 @@ FED_RATES = tuple(8 * r for r in RATES)          # paper_x8, total tasks/s
 # the tasks are what fits the phases under the limit)
 FED_TASKS = 2000
 TIER_RATES = (12.0, 24.0)                        # tiered_x4, total tasks/s
-TIER_REPS, TIER_TASKS = 10, 2000
-CPU_SUBSET_TASKS = 1000
+# tiered_x4's sweep at 500 tasks per trace (2000 until the network
+# phases joined; they run tiered_x4 at 2000); its kernels are timed at
+# 2000 tasks all the same
+TIER_REPS, TIER_TASKS, TIER_TIMED_TASKS = 10, 500, 2000
 # The observed paths: every built-in observer on the flat sweep (the
 # energy budget unset), and paper_x8 on the first 10 replicates of the
-# federated traces, each cut to its first 1000 tasks (an iteration costs
-# the host about the same at any batch, so the length of the traces sets
-# the phase's time).
+# federated traces, each cut to its first 700 tasks (1000 until the
+# network phases joined; an iteration costs the host about the same at
+# any batch, so the length of the traces sets the phase's time).
 OBSERVERS = ("task_log", "timeline", "fairness_trajectory", "energy_budget")
-OBS_FED_REPS, OBS_FED_TASKS = 10, 1000
+OBS_FED_REPS, OBS_FED_TASKS = 10, 700
+# The fed phase's CPU subset: its card run is also the faults phase's
+# dynamics="none" reference, so it shares the observed federation's cut.
+CPU_SUBSET_TASKS = OBS_FED_TASKS
 # Machine faults, the dynamics from fixed parameters: sites 0 and 3 of
 # paper_x8 down for a quarter of the horizon each, churn (a machine fails
 # with p 0.02 per event and recovers with p 0.2), and machine 1 of the
 # flat system at twice the runtime. Each run: (label, system, heuristic,
 # dispatcher, dynamics, observers, kernels). The faulted sweeps take the
-# first 10 replicates of the flat and federated traces, cut to 1000 tasks
+# first 10 replicates of the flat and federated traces, cut to 700 tasks
 # (the observed federation's traces; an iteration costs the host about
 # the same at any batch, so only shorter traces shorten the phase); the
-# plain path is held on 5 of them cut to 300.
+# plain path is held on 5 of them cut to 150.
 FAULT_OUTAGES = ((0, 0.25, 0.5), (3, 0.5, 0.75))
 FAULT_CHURN = dict(p_fail=0.02, p_recover=0.2, seed=0)
 FAULT_STRAGGLER = dict(factor=2.0, machines=(1,))
@@ -241,7 +277,22 @@ FAULT_RUNS = (
      ("task_log",), "phase1"),
 )
 FAULT_REPS, FAULT_TASKS = OBS_FED_REPS, OBS_FED_TASKS
-FAULT_PARITY_REPS, FAULT_PARITY_TASKS = 5, 300
+FAULT_BACKUP_TASKS = 500                         # the paper_x2 backup run
+FAULT_PARITY_REPS, FAULT_PARITY_TASKS = 5, 150
+# The edge-cloud network: the repo's documented configuration,
+# benchmarks/ablations.py::tiered_network(full=True): tiered_x4 (three
+# device sites and a cloud site at tier 2) under the "harsh" tiered
+# matrices, 6 tasks/s, 12 traces x 2000 tasks, ELARE + tier_aware,
+# FELARE + tier_aware and FELARE + fair_spill on the kernels, with the
+# task log and the network series. The claim of
+# benchmarks/TIERS_BASELINE.json must hold on the port's own traces.
+NET_LATENCY = ((0.05, 1.0, 6.0), (1.0, 0.05, 4.0), (6.0, 4.0, 0.0))
+NET_ENERGY = ((0.1, 0.5, 2.0), (0.5, 0.1, 1.0), (2.0, 1.0, 0.0))
+NET_RATES, NET_REPS, NET_TASKS = (6.0,), 12, 2000
+NET_ARMS = (("ELARE", "tier_aware"), ("FELARE", "tier_aware"),
+            ("FELARE", "fair_spill"))
+NET_OBSERVERS = ("task_log", "network")
+NET_PARITY_REPS, NET_PARITY_TASKS = 5, 300
 # balance_scan: the federated path's shape, then more new tasks than one
 # 4096-task tile of the kernel, and N off the 16-task vector grain.
 BALANCE_SHAPES = (dict(B=150, N=FED_TASKS, F=8), dict(B=8, N=10_000, F=32),
@@ -256,7 +307,7 @@ BALANCE_LOADS = {"equal": BALANCE_DENSITIES, "mixed": BALANCE_DENSITIES,
 # and tiered_x4's masked fold (B * F rows of all 20 machines).
 BLOCK_ROWS = dict(B=150, F=8, N=FED_TASKS, m=4, S=4)
 MASKED_ROWS = dict(B=150, sites=(0,) * 4 + (1,) * 4 + (2,) * 4 + (3,) * 8,
-                   N=TIER_TASKS, S=4)
+                   N=TIER_TIMED_TASKS, S=4)
 KERNEL_SOURCES = {
     "map_decide": ("src/repro_torch/kernels/csrc/map_fused.cu",
                    "src/repro/kernels/map_fused/kernel.py:195"),
@@ -319,14 +370,15 @@ SSD_CASES = (  # B, L, H, P, N, chunk
 )
 
 
-_T0 = time.perf_counter()
+# The script's start on the wall clock; a group's process (``--group``)
+# takes its parent's, so every line counts from the same start.
+_T0 = float(os.environ.get("CHIP_SMOKE_T0", time.time()))
 
 
 def emit(phase: str, **fields) -> None:
     """One JSON line, with the seconds since the script started."""
     print(json.dumps({"phase": phase, **fields,
-                      "at_s": round(time.perf_counter() - _T0, 1)}),
-          flush=True)
+                      "at_s": round(time.time() - _T0, 1)}), flush=True)
 
 
 def require(cond: bool, what: str) -> None:
@@ -345,12 +397,19 @@ def sass_counts(build) -> dict:
     "functions": {mangled name: counts}}}``."""
     import re
 
+    from concurrent.futures import ThreadPoolExecutor
+
     tool = pathlib.Path(build.nvcc()).parent / "cuobjdump"
-    out = {}
-    for name in build.SOURCES:
-        text = subprocess.run(
+
+    def dump(name):
+        return subprocess.run(
             [str(tool), "-sass", str(build.lib_path(name))],
             capture_output=True, text=True, check=True, timeout=300).stdout
+
+    with ThreadPoolExecutor(len(build.SOURCES)) as pool:   # all at once
+        texts = dict(zip(build.SOURCES, pool.map(dump, build.SOURCES)))
+    out = {}
+    for name, text in texts.items():
         funcs = {}
         for part in re.split(r"\n\s*Function : ", text)[1:]:
             fname, body = part.split("\n", 1)
@@ -1001,17 +1060,16 @@ def run_main_path(device, reps: int, n_tasks: int) -> tuple:
     return counts, traces, res_fused
 
 
-def run_federated_path(device, reps: int) -> dict:
-    """The federated sweeps on the fused kernels: paper_x8 (block fold)
-    with FELARE + fair_spill and ELARE + least_queued, tiered_x4 (masked
-    fold) with FELARE + least_queued. Each run's launch counts, zeroed
-    just before it, must show one map_decide and one balance_scan per
-    batched event, whatever the site count. Then the parity of the
-    FELARE runs with the plain path on the card and with the CPU.
-    Returns the launch counts in all and by system, the paper_x8 traces
-    and the paper_x8 FELARE + fair_spill result on the card's 2 x 2
-    subset."""
-    from repro_torch import scenarios
+def run_federated_path(device, reps: int, system: str) -> tuple:
+    """The federated sweeps of ``system`` on the fused kernels: paper_x8
+    (block fold) with FELARE + fair_spill and ELARE + least_queued, or
+    tiered_x4 (masked fold) with FELARE + least_queued. Each run's launch
+    counts, zeroed just before it, must show one map_decide and one
+    balance_scan per batched event, whatever the site count. Then the
+    parity of the FELARE run with the plain path on the card and, for
+    paper_x8, with the CPU. Returns the launch counts, the traces and
+    the paper_x8 FELARE + fair_spill result on the card's 2 x 2 subset
+    (paper_x8) or the FELARE result (tiered_x4)."""
     from repro_torch.core.types import Trace
     from repro_torch.experiments import SweepSpec, run_sweep
 
@@ -1022,21 +1080,18 @@ def run_federated_path(device, reps: int) -> dict:
             heuristics=(heuristic,), seed=0, use_fused_map=fused,
             dispatcher=dispatcher), traces=traces, device=dev)
 
-    def stack(system, rates, n_reps, n_tasks):
-        eet = scenarios.get_fleet(system).build().eet
-        return scenarios.DEFAULT.stack(0, rates, n_reps, n_tasks, eet,
-                                       device=device)
-
-    x8 = ("paper_x8", FED_RATES, reps, FED_TASKS)
-    tiered = ("tiered_x4", TIER_RATES, TIER_REPS, TIER_TASKS)
-    traces = {x8[0]: stack(*x8), tiered[0]: stack(*tiered)}
-    runs = ((x8, "FELARE", "fair_spill"), (x8, "ELARE", "least_queued"),
-            (tiered, "FELARE", "least_queued"))
-    total, fused, by_system = {}, {}, {}
-    for cfg, h, d in runs:
-        label = f"{cfg[0]} {h} {d}"
+    cfg, runs = {
+        "paper_x8": (("paper_x8", FED_RATES, reps, FED_TASKS),
+                     (("FELARE", "fair_spill"), ("ELARE", "least_queued"))),
+        "tiered_x4": (("tiered_x4", TIER_RATES, TIER_REPS, TIER_TASKS),
+                      (("FELARE", "least_queued"),)),
+    }[system]
+    traces = stack_traces(device, *cfg)
+    total, fused = {}, {}
+    for h, d in runs:
+        label = f"{system} {h} {d}"
         reset_counts()
-        res = sweep(*cfg, h, d, traces[cfg[0]])
+        res = sweep(*cfg, h, d, traces)
         counts = read_counts()
         summarize(res, label, phase="fed")
         steps = res.run_info[h]["loop_iterations"]
@@ -1048,38 +1103,45 @@ def run_federated_path(device, reps: int) -> dict:
         for k, v in expect.items():
             require(counts[k] == v,
                     f"{label}: {k}: {counts[k]} launches, {v} expected")
-        system_counts = by_system.setdefault(cfg[0], {})
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
-            system_counts[k] = system_counts.get(k, 0) + v
-        fused[label] = (cfg, h, d, res)
+        fused[label] = res
 
     # -- parity: plain path on the card, same traces ----------------------
-    plain_seconds = {}
-    for label in ("paper_x8 FELARE fair_spill",
-                  "tiered_x4 FELARE least_queued"):
-        cfg, h, d, res = fused[label]
-        plain = sweep(*cfg, h, d, traces[cfg[0]], fused=False)
-        same_counts(res.metrics, plain.metrics,
-                    f"{label}: fused vs plain (card)")
-        plain_seconds[label] = plain.run_info[h]["seconds"]
+    label = f"{system} FELARE {runs[0][1]}"
+    plain = sweep(*cfg, "FELARE", runs[0][1], traces, fused=False)
+    same_counts(fused[label].metrics, plain.metrics,
+                f"{label}: fused vs plain (card)")
+    parity = dict(plain_on_card="identical counters and makespans",
+                  plain_seconds={label: plain.run_info["FELARE"]["seconds"]})
+    if system == "tiered_x4":
+        emit("fed_parity", **parity)
+        return total, traces, fused[label]
 
     # -- parity: a 2 x 2 subset, each trace cut short, on the CPU ----------
-    sub = Trace(*(x[:2, :2, :CPU_SUBSET_TASKS]
-                  for x in traces["paper_x8"]))
+    sub = Trace(*(x[:2, :2, :CPU_SUBSET_TASKS] for x in traces))
     cfg = ("paper_x8", FED_RATES[:2], 2, CPU_SUBSET_TASKS)
     card = sweep(*cfg, "FELARE", "fair_spill", sub)
     cpu = sweep(*cfg, "FELARE", "fair_spill",
                 Trace(*(x.cpu() for x in sub)), dev="cpu")
     same_counts(cpu.metrics, card.metrics, "fed: card vs CPU subset",
                 energy_rel=1e-5)
-    emit("fed_parity", plain_on_card="identical counters and makespans",
+    emit("fed_parity", **parity,
          cpu_subset="identical counters, energies within rel 1e-5",
          cpu_subset_shape={"rates": list(cfg[1]), "reps": 2,
                            "tasks": CPU_SUBSET_TASKS},
-         plain_seconds=plain_seconds,
          cpu_seconds=cpu.run_info["FELARE"]["seconds"])
-    return total, by_system, traces["paper_x8"], card
+    return total, traces, card
+
+
+def stack_traces(device, system: str, rates, reps: int, n_tasks: int):
+    """The smoke's traces of ``system``: seed 0, (rates, reps) on the
+    card. Every group's process draws the same ones."""
+    from repro_torch import scenarios
+
+    eet = scenarios.get_fleet(system).build().eet
+    return scenarios.DEFAULT.stack(0, rates, reps, n_tasks, eet,
+                                   device=device)
 
 
 # --------------------------------------------------------------------------
@@ -1429,7 +1491,32 @@ def check_outage(res, traces) -> dict:
                                             & (log["status"] == 6)).sum())}
 
 
-def run_faults_path(device, flat_traces, x8_traces, fed_refs) -> tuple:
+def fault_inputs(device, flat_traces, x8_traces) -> tuple:
+    """The faulted runs' traces, tasks per trace and rates by system: the
+    first ``FAULT_REPS`` replicates of the flat and paper_x8 traces cut
+    to ``FAULT_TASKS``, paper_x2's drawn at ``FAULT_BACKUP_TASKS``; with
+    ``with_backup(FELARE, 1)`` registered as ``FAULT_BACKUP``."""
+    from repro_torch.core import faults, policy
+    from repro_torch.core.types import Trace
+
+    policy.register(FAULT_BACKUP, faults.with_backup("FELARE", 1),
+                    overwrite=True)
+    x2_rates = tuple(2 * r for r in RATES)
+    traces = {
+        "paper": Trace(*(x[:, :FAULT_REPS, :FAULT_TASKS]
+                         for x in flat_traces)),
+        "paper_x8": Trace(*(x[:, :FAULT_REPS, :FAULT_TASKS]
+                            for x in x8_traces)),
+        "paper_x2": stack_traces(device, "paper_x2", x2_rates, FAULT_REPS,
+                                 FAULT_BACKUP_TASKS),
+    }
+    tasks = {"paper": FAULT_TASKS, "paper_x8": FAULT_TASKS,
+             "paper_x2": FAULT_BACKUP_TASKS}
+    rates = {"paper": RATES, "paper_x2": x2_rates, "paper_x8": FED_RATES}
+    return traces, tasks, rates
+
+
+def run_faults_path(device, flat_traces, x8_traces, fed_refs) -> dict:
     """The faulted sweeps on the kernels (see :data:`FAULT_RUNS`), each
     run's launch counts zeroed just before it and held to one launch per
     batched event of every kernel of its path; the outage run against
@@ -1437,34 +1524,19 @@ def run_faults_path(device, flat_traces, x8_traces, fed_refs) -> tuple:
     ``fed_refs`` (the ``fed`` phase's run on its card subset and the
     observed federation's run, on the same traces) and as the churn
     run's baseline: churn wastes at least its energy. Returns the launch
-    counts, the traces and the rates by system."""
+    counts."""
     import numpy as np
 
-    from repro_torch import scenarios
-    from repro_torch.core import faults, policy
-    from repro_torch.core.types import Metrics, Trace
+    from repro_torch.core.types import Metrics
     from repro_torch.experiments import SweepSpec, run_sweep
 
-    policy.register(FAULT_BACKUP, faults.with_backup("FELARE", 1),
-                    overwrite=True)
-    x2 = scenarios.get_fleet("paper_x2").build()
-    traces = {
-        "paper": Trace(*(x[:, :FAULT_REPS, :FAULT_TASKS]
-                         for x in flat_traces)),
-        "paper_x8": Trace(*(x[:, :FAULT_REPS, :FAULT_TASKS]
-                            for x in x8_traces)),
-        "paper_x2": scenarios.DEFAULT.stack(
-            0, tuple(2 * r for r in RATES), FAULT_REPS, FAULT_TASKS, x2.eet,
-            device=device),
-    }
-    rates = {"paper": RATES, "paper_x2": tuple(2 * r for r in RATES),
-             "paper_x8": FED_RATES}
+    traces, tasks, rates = fault_inputs(device, flat_traces, x8_traces)
     total, results = {}, {}
     for run in FAULT_RUNS:
         label, system, heuristic = run[:3]
         reset_counts()
         res = run_sweep(fault_spec(run, rates[system], FAULT_REPS,
-                                   FAULT_TASKS), traces=traces[system],
+                                   tasks[system]), traces=traces[system],
                         device=device)
         counts = read_counts()
         summarize(res, label, phase="faults")
@@ -1523,7 +1595,7 @@ def run_faults_path(device, flat_traces, x8_traces, fed_refs) -> tuple:
              "loop_iterations"],
          none="Metrics identical to the fed phase's (2 x 2 subset) and "
               "the observed federation's runs")
-    return total, traces, rates
+    return total
 
 
 def run_faults_parity(device, traces: dict, rates: dict) -> None:
@@ -1573,6 +1645,150 @@ def run_faults_parity(device, traces: dict, rates: dict) -> None:
          cpu_subset="identical counters, task_log and health; energies "
                     "within rel 1e-5",
          reps=FAULT_PARITY_REPS, tasks=FAULT_PARITY_TASKS, seconds=seconds)
+
+
+# --------------------------------------------------------------------------
+# The edge-cloud network on the kernel path
+# --------------------------------------------------------------------------
+def harsh_network():
+    """The ablation's tiered network: cross-tier latencies past the
+    deadline slack."""
+    from repro_torch.core import network
+
+    return network.Tiered(latency=NET_LATENCY, energy=NET_ENERGY)
+
+
+def network_spec(heuristic, dispatcher, net, reps, n_tasks, observers,
+                 fused=True, system="tiered_x4", rates=NET_RATES):
+    from repro_torch.experiments import SweepSpec
+
+    return SweepSpec(system=system, rates=rates, reps=reps, n_tasks=n_tasks,
+                     heuristics=(heuristic,), seed=0, dispatcher=dispatcher,
+                     network=net, observers=observers, use_fused_map=fused)
+
+
+def run_network_path(device) -> dict:
+    """The ablation's three arms (:data:`NET_ARMS`) at its full size on the
+    kernels, each run's launch counts zeroed just before it and held to
+    one launch per batched event of every kernel of its path. Per arm:
+    the on-time share and the per-type completion std (pooled over the
+    replicates, as the ablation pools them), loop iterations and seconds,
+    the transfer energy per destination tier, the tasks cancelled in
+    transit (CANCELLED with their ready time still ahead of their end)
+    and the most tasks in transit at once; no task may start before it
+    lands. Then the claim of ``benchmarks/TIERS_BASELINE.json``: FELARE +
+    tier_aware's std at most ELARE + tier_aware's + 0.02, and its on-time
+    share above FELARE + fair_spill's. Returns the launch counts."""
+    import numpy as np
+
+    from repro_torch import scenarios
+    from repro_torch.experiments import run_sweep
+
+    system = scenarios.get_fleet("tiered_x4").build()
+    traces = scenarios.DEFAULT.stack(0, NET_RATES, NET_REPS, NET_TASKS,
+                                     system.eet, device=device)
+    total, arms = {}, {}
+    for heuristic, dispatcher in NET_ARMS:
+        label = f"tiered_x4 {heuristic} {dispatcher} harsh"
+        reset_counts()
+        res = run_sweep(network_spec(heuristic, dispatcher, harsh_network(),
+                                     NET_REPS, NET_TASKS, NET_OBSERVERS),
+                        traces=traces, device=device)
+        counts = read_counts()
+        summarize(res, label, phase="network")
+        steps = res.run_info[heuristic]["loop_iterations"]
+        expect = {"map_decide": steps,
+                  "evict_stats": steps if heuristic == "FELARE" else 0,
+                  "balance_scan": steps if dispatcher == "fair_spill" else 0,
+                  "phase1_map": 0}
+        require(steps > 0, f"{label}: no batched event")
+        for k, v in expect.items():
+            require(counts[k] == v,
+                    f"{label}: {k}: {counts[k]} launches, {v} expected")
+        check_observed(label, res.metrics, res.aux)
+        log, net = res.aux["task_log"], res.aux["network"]
+        started = log["start_time"] >= 0
+        require(bool(np.all(log["start_time"][started]
+                            >= log["ready_time"][started])),
+                f"{label}: a task started before it landed")
+        m = res.metrics
+        ontime = float(m.completed_by_type.sum() / m.arrived_by_type.sum())
+        std = float(res.fairness_spread[0, 0])
+        arms[(heuristic, dispatcher)] = (ontime, std)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        emit("network", run=label, launches=counts, expected=expect,
+             ontime_share=ontime, fairness_std=std,
+             completion_rate_by_type=[
+                 float(v) for v in res.completion_rate_by_type[0, 0]],
+             seconds=res.run_info[heuristic]["seconds"],
+             loop_iterations=steps,
+             xfer_energy_by_tier=[float(v) for v in
+                                  net["xfer_energy"][..., -1, :].sum(
+                                      axis=(0, 1, 2))],
+             cancelled_in_transit=int(((log["status"] == 6)
+                                       & (log["ready_time"]
+                                          > log["end_time"])).sum()),
+             cancelled=int(m.cancelled_by_type.sum()),
+             landed_late=int((log["ready_time"]
+                              > traces.arrival.cpu().numpy()[None]).sum()),
+             max_in_transit=int(net["in_transit"].max()))
+    felare, elare = arms[("FELARE", "tier_aware")], arms[("ELARE",
+                                                          "tier_aware")]
+    spill = arms[("FELARE", "fair_spill")]
+    claim = felare[1] <= elare[1] + 0.02 and felare[0] > spill[0]
+    emit("network", run="TIERS claim", felare_fairness_std=felare[1],
+         elare_fairness_std=elare[1], tier_aware_ontime=felare[0],
+         fair_spill_ontime=spill[0], holds=claim)
+    require(claim, f"the tiered-network claim fails on the port's traces: "
+                   f"{arms}")
+    return total
+
+
+def run_network_parity(device, tier_traces, tier_res) -> None:
+    """On a cut (:data:`NET_PARITY_REPS` x :data:`NET_PARITY_TASKS`) under
+    the registered ``tiered`` network, FELARE + fair_spill (map_decide,
+    evict_stats and balance_scan) with the task log and the network
+    series: the kernel path equals the plain path on the card, every
+    Metrics field and aux leaf.
+    Then ``network="none"`` on the fed phase's tiered_x4 traces gives that
+    phase's Metrics, every field."""
+    import numpy as np
+
+    from repro_torch import scenarios
+    from repro_torch.core.types import Trace
+    from repro_torch.experiments import run_sweep
+
+    system = scenarios.get_fleet("tiered_x4").build()
+    traces = scenarios.DEFAULT.stack(1, NET_RATES, NET_PARITY_REPS,
+                                     NET_PARITY_TASKS, system.eet,
+                                     device=device)
+    label = "tiered_x4 FELARE fair_spill tiered"
+    fused, plain = [run_sweep(network_spec(
+        "FELARE", "fair_spill", "tiered", NET_PARITY_REPS, NET_PARITY_TASKS,
+        NET_OBSERVERS, fused=f), traces=traces, device=device)
+        for f in (True, False)]
+    for a, b, k in zip(fused.metrics, plain.metrics, fused.metrics._fields):
+        require(a.dtype == b.dtype and (a == b).all(),
+                f"{label}: fused vs plain: {k} differs")
+    same_aux(fused.aux, plain.aux, f"{label}: fused vs plain (card)")
+    require(int(fused.aux["network"]["in_transit"].max()) > 0,
+            f"{label}: nothing was ever in transit")
+    seconds = {"fused": fused.run_info["FELARE"]["seconds"],
+               "plain": plain.run_info["FELARE"]["seconds"]}
+    sub = Trace(*(x[:, :TIER_REPS, :TIER_TASKS] for x in tier_traces))
+    none = run_sweep(network_spec(
+        "FELARE", "least_queued", "none", TIER_REPS, TIER_TASKS, (),
+        rates=TIER_RATES), traces=sub, device=device)
+    for a, b, f in zip(none.metrics, tier_res.metrics,
+                       none.metrics._fields):
+        require(np.array_equal(a, b), f"network='none' vs fed tiered_x4: {f}")
+    emit("network_parity",
+         plain_on_card="every Metrics field and aux leaf identical "
+                       "(task_log with ready times, the network series)",
+         reps=NET_PARITY_REPS, tasks=NET_PARITY_TASKS, seconds=seconds,
+         none="Metrics identical to the fed phase's tiered_x4 run",
+         none_seconds=none.run_info["FELARE"]["seconds"])
 
 
 # --------------------------------------------------------------------------
@@ -1861,8 +2077,9 @@ def profile_sim(label: str, sim, flat, steps: int) -> float:
     sim(flat)
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's records alone: the host's op records are not read,
+    # and building them cost each window seconds in key_averages
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sim(flat)
         torch.cuda.synchronize()
@@ -1870,6 +2087,7 @@ def profile_sim(label: str, sim, flat, steps: int) -> float:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
+    require(bool(kernels), f"{label}: the profiler recorded no kernel")
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     per_iteration = sum(e.count for e in kernels) / steps
@@ -1956,6 +2174,27 @@ def profile_main_path(device, reps: int, n_tasks: int, fed_reps: int,
          kernels_per_iteration=faulted,
          unfaulted_kernels_per_iteration=per_iteration["paper_x8"])
 
+    # the networked tiered_x4 FELARE + fair_spill run (the network phase's
+    # third arm) against the same run without a network
+    system = scenarios.get_fleet("tiered_x4").build()
+    traces = scenarios.DEFAULT.stack(0, NET_RATES, NET_REPS, NET_TASKS,
+                                     system.eet, device=device)
+    flat = type(traces)(*(x.reshape((-1,) + x.shape[2:]) for x in traces))
+    networked = {}
+    for label, net in (("no network", None), ("harsh tiered",
+                                              harsh_network())):
+        sim = engine.make_simulator(
+            policy.with_fused_map("FELARE"), system.as_torch(device),
+            queue_size=system.queue_size, max_steps=steps,
+            dispatcher=dispatch.with_fused_balance("fair_spill"),
+            site_of_machine=system.site_of_machine, network=net,
+            tier_of_site=system.tier_of_site)
+        networked[label] = profile_sim(
+            f"FELARE fair_spill fused_map tiered_x4, {label}", sim, flat,
+            steps)
+    emit("profile", run="networked against unnetworked tiered_x4",
+         kernels_per_iteration=networked)
+
 
 # --------------------------------------------------------------------------
 # Times
@@ -2034,7 +2273,7 @@ def map_path_inputs(path: str, device) -> dict:
         return per_row_inputs(BLOCK_ROWS["B"], BLOCK_ROWS["N"],
                               BLOCK_ROWS["S"], sites, seed=5, device=device,
                               block=True)
-    return per_row_inputs(len(TIER_RATES) * TIER_REPS, TIER_TASKS,
+    return per_row_inputs(len(TIER_RATES) * TIER_REPS, TIER_TIMED_TASKS,
                           MASKED_ROWS["S"], MASKED_ROWS["sites"], seed=5,
                           device=device, block=False)
 
@@ -2138,7 +2377,7 @@ def time_balance_scan(device) -> dict:
     out = {}
     for path, shape in (("paper_x8", BALANCE_SHAPES[0]),
                         ("tiered_x4", dict(B=len(TIER_RATES) * TIER_REPS,
-                                           N=TIER_TASKS, F=4))):
+                                           N=TIER_TIMED_TASKS, F=4))):
         B, N, F = shape["B"], shape["N"], shape["F"]
         load0, _, target, home = balance_inputs(**shape, density=0.0,
                                                 loads="mixed", seed=3,
@@ -2344,6 +2583,150 @@ def time_model_kernels(device, errs: dict) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------
+# The sweep phases (9-19) in four processes at once
+# --------------------------------------------------------------------------
+# The sweeps are bound by the host's launches (85-93 % of the card idle),
+# so four processes can share the one card. Each group draws its traces
+# from the same seed, zeroes the launch counts just before each run and
+# reads them just after, and returns them by path. Longest first.
+GROUPS = ("fed", "observe", "flat", "network")
+
+
+def metrics_digest(result, heuristic: str) -> str:
+    """sha256 of every Metrics field of ``heuristic``'s run: two groups'
+    runs of the same sweep must give the same bits."""
+    import hashlib
+
+    import numpy as np
+
+    h = result.heuristics.index(heuristic)
+    digest = hashlib.sha256()
+    for leaf in result.metrics:
+        digest.update(np.ascontiguousarray(leaf[h]).tobytes())
+    return digest.hexdigest()
+
+
+def group_flat(device, args) -> dict:
+    """Phases 9 and 10: the flat sweep and its parity."""
+    flat, _, res = run_main_path(device, args.reps, args.tasks)
+    return {"paths": {"flat": flat}, "by_shape": {"flat": flat},
+            "flat_felare": metrics_digest(res, "FELARE")}
+
+
+def group_observe(device, args) -> dict:
+    """Phases 13 and 15 (the flat sweep observed, against its own
+    unobserved FELARE run on the same traces) and 17 (the faulted runs'
+    parity)."""
+    from repro_torch.experiments import SweepSpec, run_sweep
+
+    traces = stack_traces(device, "paper", RATES, args.reps, args.tasks)
+    unobserved = run_sweep(SweepSpec(
+        system="paper", rates=RATES, reps=args.reps, n_tasks=args.tasks,
+        heuristics=("FELARE",), seed=0, use_fused_map=True), traces=traces,
+        device=device)
+    observed, parity = run_observed_path(device, traces, unobserved,
+                                         args.tasks)
+    emit("observe_parity", **parity)
+    x8 = stack_traces(device, "paper_x8", FED_RATES, args.fed_reps,
+                      FED_TASKS)
+    fault_traces, _, rates = fault_inputs(device, traces, x8)
+    run_faults_parity(device, fault_traces, rates)
+    return {"paths": {"observed": observed},
+            "flat_felare": metrics_digest(unobserved, "FELARE")}
+
+
+def group_fed(device, args) -> dict:
+    """Phases 11 and 12 on paper_x8, 14 and 15 (the observed federation)
+    and 16 (the faulted sweeps)."""
+    fed, x8, fed_subset = run_federated_path(device, args.fed_reps,
+                                             "paper_x8")
+    obs_fed, parity, obs_fed_res = run_observed_federation(
+        device, x8, min(args.fed_reps, OBS_FED_REPS))
+    emit("observe_parity", **parity)
+    flat = stack_traces(device, "paper", RATES, args.reps, args.tasks)
+    faulted = run_faults_path(device, flat, x8, (fed_subset, obs_fed_res))
+    return {"paths": {"federated": fed, "observed": obs_fed,
+                      "faults": faulted},
+            "by_shape": {"paper_x8": fed}}
+
+
+def group_network(device, args) -> dict:
+    """Phases 11 and 12 on tiered_x4, 18 and 19 (the network)."""
+    tier, tier_traces, tier_res = run_federated_path(
+        device, args.fed_reps, "tiered_x4")
+    networked = run_network_path(device)
+    run_network_parity(device, tier_traces, tier_res)
+    return {"paths": {"federated": tier, "network": networked},
+            "by_shape": {"tiered_x4": tier}}
+
+
+def run_group(args) -> int:
+    """Run one group in this process (``--group``); its last line is
+    ``{"group_result": ...}`` for the parent."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    require(torch.cuda.is_available(), "no CUDA device in a group process")
+    out = globals()[f"group_{args.group}"](torch.device("cuda"), args)
+    print(json.dumps({"group_result": out}), flush=True)
+    return 0
+
+
+def run_groups(args) -> dict:
+    """Start every group's process at once, pass their lines on as they
+    come, and return their results by group. A group that fails stops
+    the others and fails the run; a group's process dies with this
+    one."""
+    import ctypes
+    import signal
+
+    def die_with_parent():          # Linux: PR_SET_PDEATHSIG = 1
+        ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
+
+    env = dict(os.environ, CHIP_SMOKE_T0=repr(_T0))
+    lock, results = threading.Lock(), {}
+    procs = {g: subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--group", g,
+         "--reps", str(args.reps), "--tasks", str(args.tasks),
+         "--fed-reps", str(args.fed_reps)],
+        stdout=subprocess.PIPE, text=True, env=env,
+        preexec_fn=die_with_parent) for g in GROUPS}
+
+    def relay(g, proc):
+        for line in proc.stdout:
+            if line.startswith('{"group_result"'):
+                results[g] = json.loads(line)["group_result"]
+                continue
+            with lock:
+                sys.stdout.write(line)
+                sys.stdout.flush()
+
+    relays = [threading.Thread(target=relay, args=item, daemon=True)
+              for item in procs.items()]
+    for t in relays:
+        t.start()
+    try:
+        while any(p.poll() is None for p in procs.values()):
+            failed = {g: p.returncode for g, p in procs.items()
+                      if p.returncode not in (None, 0)}
+            require(not failed, f"groups failed (exit codes): {failed}")
+            time.sleep(0.5)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for t in relays:
+            t.join()
+    failed = {g: p.returncode for g, p in procs.items() if p.returncode}
+    require(not failed, f"groups failed (exit codes): {failed}")
+    require(set(results) == set(GROUPS),
+            f"groups without a result: {set(GROUPS) - set(results)}")
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=30,
@@ -2356,7 +2739,12 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="build, check and time the kernels (phases 1-5), "
                          "then stop without a result line")
+    ap.add_argument("--group", choices=GROUPS,
+                    help="run one group of the sweep phases (the script "
+                         "starts all four itself)")
     args = ap.parse_args(argv)
+    if args.group:
+        return run_group(args)
 
     import torch
 
@@ -2453,29 +2841,34 @@ def main(argv=None) -> int:
          note="federated sweeps at 2000 tasks per trace (4000 before the "
               "faulted sweeps joined)")
     emit("cut", fault_reps=FAULT_REPS, fault_tasks=FAULT_TASKS,
-         note="faulted sweeps at 10 replicates x 1000 tasks (10 x 2000 "
-              "asked)")
+         fault_backup_tasks=FAULT_BACKUP_TASKS,
+         note="faulted sweeps at 10 replicates x 700 tasks (10 x 2000 "
+              "asked), the paper_x2 backup run at 500")
     emit("cut", fault_parity_reps=FAULT_PARITY_REPS,
          fault_parity_tasks=FAULT_PARITY_TASKS,
-         note="faulted plain-path parity at 5 replicates x 300 tasks "
+         note="faulted plain-path parity at 5 replicates x 150 tasks "
               "(5 x 1000 allowed)")
-    flat, flat_traces, flat_res = run_main_path(device, args.reps,
-                                                args.tasks)
-    fed, fed_by_system, x8_traces, fed_subset = run_federated_path(
-        device, args.fed_reps)
-    observed, parity = run_observed_path(device, flat_traces, flat_res,
-                                         args.tasks)
-    obs_fed, fed_parity, obs_fed_res = run_observed_federation(
-        device, x8_traces, min(args.fed_reps, OBS_FED_REPS))
-    emit("observe_parity", **parity, **fed_parity)
-    faulted, fault_traces, fault_rates = run_faults_path(
-        device, flat_traces, x8_traces, (fed_subset, obs_fed_res))
-    run_faults_parity(device, fault_traces, fault_rates)
-    paths = {"flat": flat, "federated": fed, "serve": serve,
-             "observed": {k: observed[k] + obs_fed.get(k, 0)
-                          for k in observed},
-             "faults": faulted}
-    shape_counts = {"flat": flat, **fed_by_system}
+    emit("cut", tier_tasks=TIER_TASKS, obs_fed_tasks=OBS_FED_TASKS,
+         cpu_subset_tasks=CPU_SUBSET_TASKS,
+         note="the fed phase's tiered_x4 sweep at 10 x 500 tasks (the "
+              "network phase runs tiered_x4 at 12 x 2000); the observed "
+              "federation, the faulted sweeps and the fed CPU subset at "
+              "700 tasks per trace (1000 before the network phases)")
+    paths = {"flat": {}, "federated": {}, "serve": serve, "observed": {},
+             "faults": {}, "network": {}}
+    shape_counts = {}
+    results = run_groups(args)
+    # the flat FELARE sweep of phase 9 and the unobserved one of phase 13
+    # (whose Metrics phases 13 and 15 hold against the observed and plain
+    # runs) ran in two processes: the same bits
+    require(results["flat"]["flat_felare"]
+            == results["observe"]["flat_felare"],
+            "flat FELARE: the main and observe phases' Metrics differ")
+    for result in results.values():
+        for path, counts in result["paths"].items():
+            for k, v in counts.items():
+                paths[path][k] = paths[path].get(k, 0) + v
+        shape_counts.update(result.get("by_shape", {}))
     for row in rows:
         counters = row.get("counters", [row["name"]])
         row["launches_by_path"] = {path: sum(p.get(c, 0) for c in counters)

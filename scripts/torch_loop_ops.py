@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Count the PyTorch ops one batched iteration of the port's event loop
-dispatches, with and without engine observers and machine faults, on the
-CPU.
+dispatches, with and without engine observers, machine faults and a
+network, on the CPU.
 
     PYTHONPATH=src python scripts/torch_loop_ops.py
 
@@ -20,7 +20,14 @@ import collections
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import scenarios
-from repro_torch.core import dispatch, engine, faults, observe, policy
+from repro_torch.core import (
+    dispatch,
+    engine,
+    faults,
+    network,
+    observe,
+    policy,
+)
 
 STEPS = 64
 NOT_COUNTED = {
@@ -35,6 +42,10 @@ ALL_FOUR = ("task_log", "timeline", "fairness_trajectory", "energy_budget")
 OUTAGE = faults.SiteOutage(outages=((0, 0.25, 0.5), (3, 0.5, 0.75)))
 CHURN = faults.BernoulliUpDown(p_fail=0.02, p_recover=0.2, seed=0)
 STRAGGLER = faults.Degrade(factor=2.0, machines=(1,))
+HARSH = network.Tiered(latency=((0.05, 1.0, 6.0), (1.0, 0.05, 4.0),
+                                (6.0, 4.0, 0.0)),
+                       energy=((0.1, 0.5, 2.0), (0.5, 0.1, 1.0),
+                               (2.0, 1.0, 0.0)))
 
 
 class _Count(TorchDispatchMode):
@@ -50,7 +61,7 @@ class _Count(TorchDispatchMode):
 
 
 def ops_per_iteration(system: str, select_fn, observers=(),
-                      dispatcher=None, dynamics=None) -> float:
+                      dispatcher=None, dynamics=None, network=None) -> float:
     spec = scenarios.get_fleet(system).build()
     F = spec.n_sites
     traces = scenarios.DEFAULT.stack(0, (2.0 * F, 8.0 * F), 2, 300,
@@ -61,7 +72,8 @@ def ops_per_iteration(system: str, select_fn, observers=(),
         sim = engine.make_simulator(
             select_fn, spec.as_torch("cpu"), queue_size=spec.queue_size,
             max_steps=steps, observers=observers, dispatcher=dispatcher,
-            site_of_machine=spec.site_of_machine, dynamics=dynamics)
+            site_of_machine=spec.site_of_machine, dynamics=dynamics,
+            network=network, tier_of_site=spec.tier_of_site)
         mode = _Count()
         with mode:
             sim(flat)
@@ -104,6 +116,25 @@ def main() -> None:
     )
     for label, system, select_fn, observers, dispatcher, dyn in faulted:
         n = ops_per_iteration(system, select_fn, observers, dispatcher, dyn)
+        print(f"{label:62s} {n:8.2f}")
+    # chip_smoke.py's network phase: tiered_x4 under the harsh tiered
+    # matrices of benchmarks/ablations.py::tiered_network
+    tier_aware = dispatch.with_fused_balance("tier_aware")
+    networked = (
+        ("tiered_x4 FELARE + fair_spill, no network", felare, (),
+         fair_spill, None),
+        ("tiered_x4 ELARE + tier_aware, harsh tiered",
+         policy.with_fused_map("ELARE"), (), tier_aware, HARSH),
+        ("tiered_x4 FELARE + tier_aware, harsh tiered", felare, (),
+         tier_aware, HARSH),
+        ("tiered_x4 FELARE + fair_spill, harsh tiered", felare, (),
+         fair_spill, HARSH),
+        ("tiered_x4 FELARE + fair_spill, harsh tiered, task_log, network",
+         felare, ("task_log", "network"), fair_spill, HARSH),
+    )
+    for label, select_fn, observers, dispatcher, net in networked:
+        n = ops_per_iteration("tiered_x4", select_fn, observers, dispatcher,
+                              network=net)
         print(f"{label:62s} {n:8.2f}")
 
 

@@ -86,12 +86,14 @@ def run_study(heuristic: str, arrival_rates, spec: SystemSpec, *,
               n_traces: int = 30, n_tasks: int = 2000, seed: int = 0,
               cv_run: float = 0.1, use_fused_map: bool = False,
               use_fused_phase1: bool = False, dispatcher="sticky",
-              device=None):
+              network="none", device=None):
     """The paper's experiment template for one heuristic: ``n_traces``
     replicate traces per rate under one seed, simulated as one batch on
     ``device`` (``None`` = CUDA). A federated ``spec`` dispatches
-    through ``dispatcher``. Returns one :class:`StudyResult` per rate, in
-    ``arrival_rates`` order."""
+    through ``dispatcher``; ``network`` (a registered name or a
+    NetworkModel; ``"none"`` = free links) prices inter-site dispatch
+    over the spec's tiers. Returns one
+    :class:`StudyResult` per rate, in ``arrival_rates`` order."""
     from repro_torch import experiments
 
     sweep_spec = experiments.SweepSpec(
@@ -99,6 +101,7 @@ def run_study(heuristic: str, arrival_rates, spec: SystemSpec, *,
         reps=n_traces, n_tasks=n_tasks, heuristics=(heuristic,), seed=seed,
         cv_run=cv_run, use_fused_map=use_fused_map,
         use_fused_phase1=use_fused_phase1, dispatcher=dispatcher,
+        network=network,
     )
     result = experiments.run_sweep(sweep_spec, device=device)
     return [

@@ -8,7 +8,8 @@ engine's ``dispatch`` stage; the mapping policy then runs once per
 iteration over every site's view, folded into the batch. Built-ins:
 ``sticky`` (the default), ``round_robin``, ``least_queued``, ``min_eet``,
 ``fair_spill``, ``health_aware`` (dead-home tasks re-routed under machine
-dynamics), and ``tier_aware`` in the form it takes without a network.
+dynamics), and ``tier_aware`` (``min_eet`` plus each task's transfer
+latency under a network).
 ``with_fused_balance`` puts the least-loaded walk of ``least_queued``,
 ``fair_spill`` and ``health_aware`` on the ``balance_scan`` kernel.
 """

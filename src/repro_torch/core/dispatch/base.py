@@ -14,8 +14,9 @@ whole batch.
 With a machine dynamics attached the engine hands the context the
 replicates' health, ``alive`` (B, M), and an EET table masked by it, one
 per replicate, (B, S, M): dead machines' columns read BIG and
-stragglers' are slowdown-scaled. The network slice is not ported:
-``xfer_lat`` and ``xfer_energy`` must be ``None`` (ROADMAP A5).
+stragglers' are slowdown-scaled. With a network attached it hands the
+per-task link costs from each task's origin to every site, ``xfer_lat``
+and ``xfer_energy``, (B, N, F).
 """
 from __future__ import annotations
 
@@ -58,8 +59,10 @@ class DispatchContext:
     n_sites: int               # F, static
     fairness_factor: float     # Eq. 3's f, static engine config
     alive: Optional[torch.Tensor] = None        # (B, M) bool, None: no faults
-    xfer_lat: Optional[torch.Tensor] = None     # network: not ported (A5)
-    xfer_energy: Optional[torch.Tensor] = None  # network: not ported (A5)
+    #: (B, N, F) f32 per-task transfer latency / energy to each site
+    #: (``None``: no network, free links).
+    xfer_lat: Optional[torch.Tensor] = None
+    xfer_energy: Optional[torch.Tensor] = None
     #: (S, F) :attr:`eet_min_by_site`, when the caller already holds it
     #: (the engine computes it once per simulator: without faults it is
     #: static).
@@ -68,13 +71,6 @@ class DispatchContext:
     #: caller without reading the device; the plain balance walk loops to
     #: it. ``None`` lets the walk read it.
     max_new: Optional[int] = None
-
-    def __post_init__(self):
-        for name in ("xfer_lat", "xfer_energy"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"DispatchContext.{name}: the network subsystem is not "
-                    f"ported (ROADMAP A5)")
 
     # -- static shapes ------------------------------------------------------
     @property

@@ -3,8 +3,7 @@
 Each is a frozen (hashable) dataclass carrying the same ``kind`` and
 fields as its JAX twin. All are dispatch-once: a task's site is chosen
 the first time it is pending and never migrates (an orphan of a dead
-machine is dispatched anew). ``tier_aware`` is ported in the form it takes
-without a network, where it equals ``min_eet`` bit for bit.
+machine is dispatched anew).
 """
 from __future__ import annotations
 
@@ -42,6 +41,17 @@ def _fastest_site(ctx: DispatchContext) -> torch.Tensor:
     if best.dim() == 1:
         return best[ctx.task_type]
     return best.gather(1, ctx.task_type)
+
+
+def _task_site_minima(ctx: DispatchContext) -> torch.Tensor:
+    """(B, N, F) each task's fastest EET per site, gathered from the
+    shared (S, F) minima or per replicate from (B, S, F) ones."""
+    ems = ctx.eet_min_by_site
+    if ems.dim() == 2:
+        return ems[ctx.task_type]
+    B, N = ctx.task_type.shape
+    idx = ctx.task_type[:, :, None].expand(B, N, ems.shape[2])
+    return ems.gather(1, idx)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,13 +133,18 @@ class FairSpill:
 class TierAware:
     """EET-aware cheapest site including the cost of getting there.
 
-    Without a network (the only form ported) the transfer term vanishes
-    and this is ``min_eet``, bit for bit."""
+    Scores each site by the EET of its fastest machine for the task's
+    type plus the transfer latency from the task's origin (one float32
+    add) and takes the argmin, lowest site on ties. With no network
+    attached (``ctx.xfer_lat is None``) the latency term vanishes and
+    this is ``min_eet``, bit for bit."""
 
     kind = "tier_aware"
 
     def dispatch(self, ctx: DispatchContext) -> torch.Tensor:
-        return _fastest_site(ctx)
+        if ctx.xfer_lat is None:
+            return _fastest_site(ctx)
+        return (_task_site_minima(ctx) + ctx.xfer_lat).argmin(dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,9 @@
 """Discrete-event simulation engine for the HEC system, batched, in PyTorch.
 
 Counterpart of ``repro/core/engine.py`` for the flat system and the
-multi-site federation, with engine observers, the energy-budget gate and
-machine faults (no network). Semantics follow Sec. III of the paper and
-the reference op for op:
+multi-site federation, with engine observers, the energy-budget gate,
+machine faults and the edge-cloud network. Semantics follow Sec. III of
+the paper and the reference op for op:
 
   * mapping events fire on task arrival and task completion, plus a
     progress event at the earliest pending deadline;
@@ -61,6 +61,17 @@ every event. Scheduled dynamics (outage windows) add their window edges
 to the next-event times. With ``dynamics=None`` or ``"none"`` none of
 this runs: the state carries no health fields and the loop issues not
 one op more.
+
+A network model (:mod:`repro_torch.core.network`) makes the dispatch
+stage pay each fresh dispatch's link from the task's origin site: the
+task's ready time becomes ``now + lat`` (the map stage hides it until it
+lands, and its landing drives an event of its own), the link energy is
+charged to the dynamic account and tallied per destination tier, and
+in-transit tasks whose deadline passed are cancelled. The per-task link
+costs are gathered once per simulation, (B, N, F). An orphan whose site
+the faults stage cleared pays its link again; a failover to a backup
+keeps its ready time. With ``network=None`` or ``"none"`` the state
+carries no transfer fields and the loop issues not one op more.
 """
 from __future__ import annotations
 
@@ -70,6 +81,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import dispatch, fairness, faults, observe
+from repro_torch.core import network as net_mod
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dispatch.base import site_minima
 from repro_torch.core.eet import type_rows
@@ -121,12 +133,14 @@ def _count_by_type(counts, task_type, mask):
 
 def _init_state(trace: Trace, n_machines: int, queue_size: int,
                 n_types: int, n_sites: int = 1, health: bool = False,
-                backup_k: int = 0) -> SimState:
-    """The state before the first event. With one site every task's site
-    is 0 from the start (the reference gives it 0 at admission); in a
-    federation it is -1 until the task is dispatched. ``health`` adds the
-    fault fields (every machine alive at nominal speed, no retries) and
-    ``backup_k`` the backup table."""
+                backup_k: int = 0, n_tiers: int = 0) -> SimState:
+    """The state before the first event. With one site and no network
+    every task's site is 0 from the start (the reference gives it 0 at
+    admission); otherwise it is -1 until the task is dispatched.
+    ``health`` adds the fault fields (every machine alive at nominal
+    speed, no retries), ``backup_k`` the backup table, and ``n_tiers``
+    > 0 (a network) the ready times (the arrivals) and the per-tier
+    transfer energy (0)."""
     B, n = trace.arrival.shape
     M, Q, S = n_machines, queue_size, n_types
     dev = trace.arrival.device
@@ -138,7 +152,7 @@ def _init_state(trace: Trace, n_machines: int, queue_size: int,
     return SimState(
         now=full((B,), 0.0, f32),
         status=full((B, n), UNARRIVED, i64),
-        site=full((B, n), 0 if n_sites == 1 else -1, i64),
+        site=full((B, n), 0 if n_sites == 1 and not n_tiers else -1, i64),
         run_task=full((B, M), -1, i64),
         run_start=full((B, M), 0.0, f32),
         run_end_act=full((B, M), INF, f32),
@@ -158,6 +172,8 @@ def _init_state(trace: Trace, n_machines: int, queue_size: int,
         slowdown=full((B, M), 1.0, f32) if health else None,
         retries=full((B, n), 0, i64) if health else None,
         backup=full((B, n, backup_k), -1, i64) if backup_k else None,
+        ready=trace.arrival.clone() if n_tiers else None,
+        e_xfer=full((B, n_tiers), 0.0, f32) if n_tiers else None,
     )
 
 
@@ -165,17 +181,22 @@ def _next_event_time(st: SimState, trace: Trace,
                      halted: Optional[torch.Tensor] = None,
                      wake_ts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B,) earliest of: next arrival, next completion, earliest pending
-    deadline (the progress guard). ``inf`` when nothing is left. Where
-    ``halted`` (B,) is set, arrivals no longer drive events. ``wake_ts``
-    (B, W) are a scheduled dynamics' window edges: each fires once, as
-    only strictly future ones count."""
+    deadline (the progress guard), and with a network the next landing of
+    an in-transit task. ``inf`` when nothing is left. Where ``halted``
+    (B,) is set, arrivals no longer drive events. ``wake_ts`` (B, W) are
+    a scheduled dynamics' window edges: each fires once, as only strictly
+    future ones count."""
     inf = torch.full((), INF, device=st.now.device)
     t_arr = torch.where(st.status == UNARRIVED, trace.arrival, inf).amin(1)
     if halted is not None:
         t_arr = torch.where(halted, INF, t_arr)
     t_comp = st.run_end_act.amin(1)
-    t_dead = torch.where(st.status == PENDING, trace.deadline, inf).amin(1)
+    pending = st.status == PENDING
+    t_dead = torch.where(pending, trace.deadline, inf).amin(1)
     t = torch.minimum(torch.minimum(t_arr, t_comp), t_dead)
+    if st.ready is not None:
+        landing = pending & (st.ready > st.now[:, None])
+        t = torch.minimum(t, torch.where(landing, st.ready, inf).amin(1))
     if wake_ts is None:
         return t
     t_wake = torch.where(wake_ts > st.now[:, None], wake_ts, inf).amin(1)
@@ -531,9 +552,41 @@ def _max_admissions(arrival: torch.Tensor) -> int:
     return int(torch.bincount(group.flatten(), minlength=B * n).max())
 
 
+class _Net(NamedTuple):
+    """A network's link costs and tiers, static per simulation."""
+
+    lat: torch.Tensor         # (B, N, F) f32 latency of each task's links
+    en: torch.Tensor          # (B, N, F) f32 energy of each task's links
+    site_tier: torch.Tensor   # (F,) int64 tier of each site
+    tier_range: torch.Tensor  # (T,) int64 tier ids
+
+
+def _make_net(network, tiers: tuple, n_types: int, trace: Trace
+              ) -> Optional[_Net]:
+    """The :class:`_Net` of a simulation, ``None`` without a network.
+
+    Row ``k`` of the link tables prices task ``k``'s origin (a salted
+    counter hash over the device-tier sites) against every site:
+    ``lat[b, k, s] = cost_lat[type[b, k], origin[k], s]``, gathered once.
+    """
+    if network is None:
+        return None
+    dev = trace.arrival.device
+    n = trace.arrival.shape[1]
+    lat, en = network.cost_tables(tiers, n_types)
+    origin = net_mod.hash_origins(n, net_mod.origin_sites(tiers),
+                                  int(getattr(network, "salt", 0)), dev)
+    types = trace.task_type
+    return _Net(torch.as_tensor(lat, device=dev)[types, origin],
+                torch.as_tensor(en, device=dev)[types, origin],
+                torch.as_tensor(tiers, dtype=torch.int64, device=dev),
+                torch.arange(max(tiers) + 1, device=dev))
+
+
 def _stage_dispatch(st: SimState, trace: Trace, sysarr: SystemArrays,
-                    dispatcher, fold: _Fold, fairness_factor: float,
-                    max_new: int, eet_h: Optional[torch.Tensor] = None):
+                    dispatcher, fold: Optional[_Fold], fairness_factor: float,
+                    max_new: int, eet_h: Optional[torch.Tensor] = None,
+                    net: Optional[_Net] = None):
     """Give newly-admitted tasks their site (dispatch-once).
 
     A task is dispatched at the first event where it is PENDING and still
@@ -542,21 +595,61 @@ def _stage_dispatch(st: SimState, trace: Trace, sysarr: SystemArrays,
     queue lengths and running machines: tasks dispatched but still
     pending do not count toward a site's load. Under faults it reads the
     health-masked (B, S, M) table ``eet_h`` and the machines' health.
+    With one site (``fold`` is ``None``, which the loop passes here only
+    with a network) every task goes to site 0. With a network ``net``
+    each fresh dispatch then pays its link (:func:`_pay_links`).
     """
     new = (st.status == PENDING) & (st.site < 0)
-    health = eet_h is not None
-    ctx = dispatch.DispatchContext(
-        now=st.now, unassigned=new, task_type=trace.task_type,
-        deadline=trace.deadline, qlen=st.qlen, running=st.run_task >= 0,
-        completed=st.completed, arrived=st.arrived,
-        eet=eet_h if health else sysarr.eet,
-        site_of_machine=fold.owner, n_sites=fold.n_sites,
-        fairness_factor=fairness_factor,
-        alive=st.alive if health else None,
-        eet_min_site=None if health else fold.eet_min_site,
-        max_new=max_new)
-    sites = dispatcher.dispatch(ctx).clamp(0, fold.n_sites - 1)
-    return st._replace(site=torch.where(new, sites, st.site))
+    if fold is None:
+        sites = torch.zeros_like(st.site)
+    else:
+        health = eet_h is not None
+        ctx = dispatch.DispatchContext(
+            now=st.now, unassigned=new, task_type=trace.task_type,
+            deadline=trace.deadline, qlen=st.qlen, running=st.run_task >= 0,
+            completed=st.completed, arrived=st.arrived,
+            eet=eet_h if health else sysarr.eet,
+            site_of_machine=fold.owner, n_sites=fold.n_sites,
+            fairness_factor=fairness_factor,
+            alive=st.alive if health else None,
+            xfer_lat=None if net is None else net.lat,
+            xfer_energy=None if net is None else net.en,
+            eet_min_site=None if health else fold.eet_min_site,
+            max_new=max_new)
+        sites = dispatcher.dispatch(ctx).clamp(0, fold.n_sites - 1)
+    st = st._replace(site=torch.where(new, sites, st.site))
+    if net is None:
+        return st
+    return _pay_links(st, trace, new, sites, net)
+
+
+def _pay_links(st: SimState, trace: Trace, new: torch.Tensor, sites,
+               net: _Net) -> SimState:
+    """Charge the links of this event's fresh dispatches ``new`` (B, N)
+    to ``sites`` (the reference's transfer accounting, in its order):
+
+      * the ready time at the chosen site becomes ``now + lat``;
+      * the link energy is added to ``e_dyn``, and to ``e_xfer`` under
+        the destination's tier: T masked sums in a fixed order, never a
+        float scatter, so the card gives the same bits on every run;
+      * a pending task still in transit at or past its deadline is
+        CANCELLED and counted by type (the map stage cannot see it, so
+        no drop rule would); its transfer energy stays spent.
+    """
+    s = torch.where(new, sites, 0)[..., None]     # sites are in range
+    lat = net.lat.gather(2, s)[..., 0]
+    en = net.en.gather(2, s)[..., 0]
+    now = st.now[:, None]
+    ready = torch.where(new, now + lat, st.ready)
+    pay = torch.where(new, en, 0.0)
+    to_tier = net.site_tier[s] == net.tier_range                # (B, N, T)
+    e_xfer = st.e_xfer + torch.where(to_tier, pay[..., None], 0.0).sum(1)
+    stale = ((st.status == PENDING) & (ready > now)
+             & (now >= trace.deadline))
+    return st._replace(
+        ready=ready, e_dyn=st.e_dyn + pay.sum(1), e_xfer=e_xfer,
+        status=torch.where(stale, CANCELLED, st.status),
+        cancelled=_count_by_type(st.cancelled, trace.task_type, stale))
 
 
 def _map_action(st: SimState, trace: Trace, sysarr: SystemArrays,
@@ -578,7 +671,9 @@ def _map_action(st: SimState, trace: Trace, sysarr: SystemArrays,
     is masked before the flat / block-fold / masked-fold split: dead
     machines read avail=BIG, an empty queue, qlen=Q and EET=BIG, as
     out-of-site machines do, and the site views' tables are folded from
-    ``eet_h`` at this event.
+    ``eet_h`` at this event. With a network, a task in transit (its ready
+    time still ahead) is not pending to the policy: the kernels receive
+    ``status == PENDING & ready <= now``.
     """
     suffered = fairness.suffered_types(st.completed, st.arrived,
                                        fairness_factor)
@@ -586,6 +681,8 @@ def _map_action(st: SimState, trace: Trace, sysarr: SystemArrays,
     avail_base = torch.maximum(
         torch.where(st.run_task >= 0, st.run_end_exp, now), now)
     pending = st.status == PENDING
+    if st.ready is not None:
+        pending = pending & (st.ready <= now)
     B, M, Q = st.queue.shape
     queue, qlen = st.queue, st.qlen
     if eet_h is not None:
@@ -787,13 +884,13 @@ def _freeze_aux(active: torch.Tensor, new: dict, old: dict) -> dict:
 
 
 def _bind_observers(observers, *, fairness_factor: float, queue_size: int,
-                    sites: tuple) -> tuple:
+                    sites: tuple, tiers: tuple) -> tuple:
     """Resolve names and bind the engine's configuration, as the
     reference's ``make_simulator`` does; refuse duplicate names."""
     bound = tuple(
         ob.with_engine_config(fairness_factor=fairness_factor,
                               queue_size=queue_size, site_of_machine=sites,
-                              tier_of_site=(0,) * (max(sites) + 1))
+                              tier_of_site=tiers)
         for ob in observe.resolve(observers))
     names = [ob.name for ob in bound]
     if len(set(names)) != len(names):
@@ -805,7 +902,8 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
                queue_size: int, fairness_factor: float = 1.0,
                max_steps: int | None = None, dispatcher=None,
                site_of_machine: tuple | None = None,
-               observers: tuple = (), dynamics=None) -> Callable:
+               observers: tuple = (), dynamics=None, network=None,
+               tier_of_site: tuple | None = None) -> Callable:
     """``run(trace) -> (SimState, aux)``: the event loop of
     :func:`make_simulator`, returning the final batched state and each
     observer's finalized result by name (``{}`` with no observers)."""
@@ -816,14 +914,23 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
         raise ValueError(
             f"site_of_machine has {len(sites)} entries for {M} machines")
     n_sites = max(sites) + 1
+    tiers = ((0,) * n_sites if tier_of_site is None
+             else tuple(int(t) for t in tier_of_site))
+    if len(tiers) != n_sites:
+        raise ValueError(
+            f"tier_of_site has {len(tiers)} entries for {n_sites} sites")
     fold = _make_fold(sysarr, sites) if n_sites > 1 else None
     dispatcher = dispatch.resolve(dispatcher)
     observers = _bind_observers(observers, fairness_factor=fairness_factor,
-                                queue_size=queue_size, sites=sites)
+                                queue_size=queue_size, sites=sites,
+                                tiers=tiers)
     gaters = tuple(ob for ob in observers if ob.is_dynamic)
     dynamics = faults.resolve(dynamics)
     if getattr(dynamics, "kind", None) == "none":
         dynamics = None
+    network = net_mod.resolve(network)
+    if getattr(network, "kind", None) == "none":
+        network = None
 
     def run(trace: Trace):
         n = trace.arrival.shape[1]
@@ -835,8 +942,9 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
         h = _make_health(dynamics, select_fn, sites, trace)
         backup_k = 0 if h is None else h.backup_k
         wake_ts = None if h is None else h.wake_ts
+        net = _make_net(network, tiers, S, trace)
         st = _init_state(trace, M, queue_size, S, n_sites, h is not None,
-                         backup_k)
+                         backup_k, 0 if net is None else max(tiers) + 1)
         aux = {ob.name: ob.init(trace, sysarr) for ob in observers}
         rows, max_new = None, 0
         if fold is not None:
@@ -871,9 +979,9 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
                 new = _stage_faults(new, trace, sysarr, h)
                 new_aux = notify("faults", new_aux, new)
                 eet_h = _health_eet(sysarr, new)
-            if fold is not None:
+            if fold is not None or net is not None:
                 new = _stage_dispatch(new, trace, sysarr, dispatcher, fold,
-                                      fairness_factor, max_new, eet_h)
+                                      fairness_factor, max_new, eet_h, net)
             elif h is not None:
                 # the flat dispatch: orphans go back to site 0
                 new = new._replace(site=new.site.clamp(min=0))
@@ -898,7 +1006,8 @@ def make_simulator(select_fn: Callable, sysarr: SystemArrays, *,
                    queue_size: int, fairness_factor: float = 1.0,
                    max_steps: int | None = None, dispatcher=None,
                    site_of_machine: tuple | None = None,
-                   observers: tuple = (), dynamics=None) -> Callable:
+                   observers: tuple = (), dynamics=None, network=None,
+                   tier_of_site: tuple | None = None) -> Callable:
     """Build ``simulate(trace)`` for one mapping policy.
 
     ``trace`` is a batched :class:`Trace` (leaves (B, N) and (B, N, M))
@@ -922,11 +1031,19 @@ def make_simulator(select_fn: Callable, sysarr: SystemArrays, *,
     masking at the dispatch, map and start stages and orphan re-dispatch
     at the ``faults`` stage. A ``with_backup`` policy also nominates
     backups (inert without a dynamics).
+
+    ``network`` is the inter-site cost model, a registered
+    :mod:`repro_torch.core.network` name or instance. ``None`` or
+    ``"none"`` issues no transfer arithmetic; any other model prices each
+    dispatch's ``origin -> site`` link at the dispatch stage. Its tiers
+    are ``tier_of_site``, the static (F,) site tiers (``None``: all on
+    the device tier), which the observers are bound to as well.
     """
     run = _make_loop(select_fn, sysarr, queue_size=queue_size,
                      fairness_factor=fairness_factor, max_steps=max_steps,
                      dispatcher=dispatcher, site_of_machine=site_of_machine,
-                     observers=observers, dynamics=dynamics)
+                     observers=observers, dynamics=dynamics, network=network,
+                     tier_of_site=tier_of_site)
 
     def simulate(trace: Trace):
         st, aux = run(trace)
@@ -939,17 +1056,13 @@ def make_simulator(select_fn: Callable, sysarr: SystemArrays, *,
 def _metrics(st: SimState, sysarr: SystemArrays) -> Metrics:
     """The :class:`Metrics` of a final batched state.
 
-    Under faults the idle energy is summed left to right with an FMA per
-    machine, as the reference's compiled sum does up to 8 machines, so
-    every faulted energy is bit for bit the reference's there; without
-    faults it keeps the sum the port always took (ROADMAP C).
+    The idle energy is summed left to right with an FMA per machine, as
+    the reference's compiled sum does up to 8 machines, so it is bit for
+    bit the reference's there (past 8 machines XLA vectorizes that sum,
+    in an order the port does not mimic; ROADMAP C).
     """
     makespan = st.now
-    idle = makespan[:, None] - st.busy_time
-    if st.alive is None:
-        e_idle = (sysarr.p_idle * idle).sum(1)
-    else:
-        e_idle = seq_dot(sysarr.p_idle, idle)
+    e_idle = seq_dot(sysarr.p_idle, makespan[:, None] - st.busy_time)
     return Metrics(
         completed_by_type=st.completed,
         missed_by_type=st.missed,
@@ -989,7 +1102,7 @@ def _resolve_dispatcher(dispatcher, use_fused_map: bool):
 
 def simulate_batch(traces: Trace, spec, heuristic, *, observers=(),
                    max_steps=None, dispatcher=None, dynamics=None,
-                   use_fused_map: bool = False,
+                   network=None, use_fused_map: bool = False,
                    use_fused_phase1: bool = False, device=None):
     """Simulate a batch of traces (leaves (B, N), (B, N, M)) under one
     heuristic (a registered name or a policy object) on ``device``
@@ -1001,28 +1114,35 @@ def simulate_batch(traces: Trace, spec, heuristic, *, observers=(),
     served through ``dispatcher`` (a registered name or a dispatcher;
     ``None`` = ``sticky``). ``dynamics`` (a registered name or instance;
     ``None`` = ``"none"``) injects machine failures at the ``faults``
-    stage. ``use_fused_map`` runs the map decision and the dispatcher's
-    balance walk through the kernels.
+    stage. ``network`` (a registered name or instance; ``None`` =
+    ``"none"``) prices inter-site dispatch over ``spec.tier_of_site``.
+    ``use_fused_map`` runs the map decision and the dispatcher's balance
+    walk through the kernels.
     """
     dev = resolve_device(device)
+    net = net_mod.resolve(network)
+    # as the reference: observers see the tiers only with a network
+    tiers = None if getattr(net, "kind", None) == "none" else spec.tiers
     sim = make_simulator(
         _resolve_policy(heuristic, use_fused_map, use_fused_phase1),
         spec.as_torch(dev), queue_size=spec.queue_size,
         fairness_factor=float(spec.fairness_factor), max_steps=max_steps,
         dispatcher=_resolve_dispatcher(dispatcher, use_fused_map),
         site_of_machine=spec.site_of_machine, observers=observers,
-        dynamics=dynamics)
+        dynamics=dynamics, network=net, tier_of_site=tiers)
     return sim(_to_device(traces, dev))
 
 
 def simulate(trace: Trace, spec, heuristic, *, observers=(), max_steps=None,
-             dispatcher=None, dynamics=None, use_fused_map: bool = False,
-             use_fused_phase1: bool = False, device=None):
+             dispatcher=None, dynamics=None, network=None,
+             use_fused_map: bool = False, use_fused_phase1: bool = False,
+             device=None):
     """One trace (leaves (N,), (N, M)), one SystemSpec, one heuristic:
     Metrics, or ``(Metrics, aux)`` with observers, without the batch dim."""
     batched = Trace(*(x[None] for x in trace))
     out = simulate_batch(batched, spec, heuristic, observers=observers,
                          max_steps=max_steps, dispatcher=dispatcher,
-                         dynamics=dynamics, use_fused_map=use_fused_map,
+                         dynamics=dynamics, network=network,
+                         use_fused_map=use_fused_map,
                          use_fused_phase1=use_fused_phase1, device=device)
     return observe.tree_map(lambda x: x[0], out)

@@ -15,10 +15,9 @@ Built-ins, all fixed-shape tensors batched over the engine's replicates:
     finite battery capacity the engine consults to stop admitting work
     (inert at the default ``capacity=inf``);
   * ``health`` — :class:`Health`, K-bucket healthy-machine, site-heartbeat
-    and orphan-pressure series of the faults subsystem.
-
-The reference's ``network`` observer waits for the network subsystem
-(ROADMAP A5); its JSON kind raises ``KeyError`` here.
+    and orphan-pressure series of the faults subsystem;
+  * ``network`` — :class:`Network`, K-bucket per-tier load, per-tier
+    transfer energy and in-transit series of the network subsystem.
 """
 from __future__ import annotations
 
@@ -30,6 +29,7 @@ from repro_torch.core.observe.base import (
 )
 from repro_torch.core.observe.energy import EnergyBudget
 from repro_torch.core.observe.health import Health
+from repro_torch.core.observe.network import Network
 from repro_torch.core.observe.registry import (
     get,
     is_registered,
@@ -45,6 +45,7 @@ __all__ = [
     "EnergyBudget",
     "FairnessTrajectory",
     "Health",
+    "Network",
     "Observer",
     "TaskLog",
     "Timeline",
@@ -61,17 +62,15 @@ __all__ = [
     "unregister",
 ]
 
-#: JSON ``kind`` -> built-in observer class, for spec round-tripping;
-#: ``None`` marks a reference kind the port does not have yet.
+#: JSON ``kind`` -> built-in observer class, for spec round-tripping.
 _KINDS = {
     "timeline": Timeline,
     "fairness_trajectory": FairnessTrajectory,
     "task_log": TaskLog,
     "energy_budget": EnergyBudget,
     "health": Health,
-    "network": None,
+    "network": Network,
 }
-_WAITING = {"network": "A5, network"}
 
 
 def from_json_dict(d: dict):
@@ -81,11 +80,6 @@ def from_json_dict(d: dict):
         raise ValueError(
             f"unknown observer kind {kind!r}; choose from {sorted(_KINDS)}")
     cls = _KINDS[kind]
-    if cls is None:
-        raise KeyError(
-            f"observer kind {kind!r} is not ported yet (ROADMAP "
-            f"{_WAITING[kind]}); the port has "
-            f"{sorted(k for k, c in _KINDS.items() if c is not None)}")
     params = {k: v for k, v in d.items() if k != "kind"}
     if hasattr(cls, "from_json_dict"):
         return cls.from_json_dict(params)
@@ -109,6 +103,7 @@ for _name, _ob in [
     ("task_log", TaskLog()),
     ("energy_budget", EnergyBudget()),
     ("health", Health()),
+    ("network", Network()),
 ]:
     register(_name, _ob)
 del _name, _ob

@@ -45,7 +45,9 @@ class TaskLog(Observer):
       ``status``     int32, final status code
       ``retries``    int32, orphan re-dispatches the task suffered from
                      machine failures (0 with no dynamics attached)
-      ``ready_time`` f32, −1 (the port has no network)
+      ``ready_time`` f32, when the task landed at its dispatched site
+                     (its arrival until dispatched; −1 throughout with
+                     no network attached)
     """
 
     name: str = "task_log"
@@ -98,7 +100,8 @@ class TaskLog(Observer):
             "status": st.status.to(i32),
             "retries": (torch.zeros_like(st.status, dtype=i32)
                         if st.retries is None else st.retries.to(i32)),
-            "ready_time": torch.full_like(aux["map_time"], -1.0),
+            "ready_time": (torch.full_like(aux["map_time"], -1.0)
+                           if st.ready is None else st.ready),
         }
 
     def to_json_dict(self) -> dict:

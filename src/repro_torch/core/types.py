@@ -7,9 +7,9 @@ it once it is inside the engine.
 
 A ``SystemSpec`` may partition its machines into federation sites
 (``site_of_machine``) and its sites into edge-cloud tiers
-(``tier_of_site``); ``SimState`` carries each task's site, and the health
-fields of the faults subsystem when a machine dynamics is attached. It has
-none of the network fields.
+(``tier_of_site``); ``SimState`` carries each task's site, the health
+fields of the faults subsystem when a machine dynamics is attached, and
+the transfer fields of the network subsystem when a network is attached.
 """
 from __future__ import annotations
 
@@ -166,7 +166,9 @@ class SimState(NamedTuple):
     The health fields are ``None`` unless a machine dynamics is attached
     (:mod:`repro_torch.core.faults`), so the loop without one carries and
     freezes nothing for them; ``backup`` is ``None`` too unless the policy
-    nominates backups (``with_backup``).
+    nominates backups (``with_backup``). Likewise ``ready`` and ``e_xfer``
+    are ``None`` unless a network is attached (:mod:`repro_torch.core.
+    network`).
     """
 
     now: torch.Tensor          # (B,) f32
@@ -191,6 +193,8 @@ class SimState(NamedTuple):
     slowdown: Optional[torch.Tensor] = None  # (B, M) f32 EET scale factors
     retries: Optional[torch.Tensor] = None   # (B, N) int64 orphan count
     backup: Optional[torch.Tensor] = None    # (B, N, k) int64, -1 = none
+    ready: Optional[torch.Tensor] = None     # (B, N) f32 site ready time
+    e_xfer: Optional[torch.Tensor] = None    # (B, T) f32 transfer J by tier
 
 
 class Metrics(NamedTuple):

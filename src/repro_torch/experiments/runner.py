@@ -24,7 +24,7 @@ def _as_tensor(x) -> torch.Tensor:
 
 
 def simulate_sweep(traces: Trace, system: SystemSpec, heuristic_names, *,
-                   dispatcher=None, dynamics=None,
+                   dispatcher=None, dynamics=None, network=None,
                    use_fused_phase1: bool = False,
                    use_fused_map: bool = False, max_steps=None, device=None,
                    observers=(), run_info: dict | None = None):
@@ -34,6 +34,8 @@ def simulate_sweep(traces: Trace, system: SystemSpec, heuristic_names, *,
     ``use_fused_map`` also puts its balance walk on the kernel.
     ``dynamics`` (a registered name or instance; ``None`` = ``"none"``)
     injects machine failures; every heuristic sees the same ones.
+    ``network`` (a registered name or instance; ``None`` = ``"none"``)
+    prices each dispatch's link over ``system.tier_of_site``.
 
     Returns Metrics as numpy arrays with leaves (H, B, ...), or
     ``(Metrics, aux)`` with ``observers`` attached, every aux leaf a
@@ -48,7 +50,7 @@ def simulate_sweep(traces: Trace, system: SystemSpec, heuristic_names, *,
         it0 = engine.COUNTS["loop_iterations"]
         out = engine.simulate_batch(
             traces, system, name, observers=observers, max_steps=max_steps,
-            dispatcher=dispatcher, dynamics=dynamics,
+            dispatcher=dispatcher, dynamics=dynamics, network=network,
             use_fused_map=use_fused_map,
             use_fused_phase1=use_fused_phase1, device=dev)
         per_h.append(observe.tree_map(lambda x: x.cpu().numpy(), out))
@@ -84,7 +86,7 @@ def run_sweep(spec: SweepSpec, *, traces: Trace | None = None,
     observers = spec.resolve_observers()
     out = simulate_sweep(
         flat, system, spec.heuristics, dispatcher=spec.dispatcher,
-        dynamics=spec.resolve_dynamics(),
+        dynamics=spec.resolve_dynamics(), network=spec.resolve_network(),
         use_fused_phase1=spec.use_fused_phase1,
         use_fused_map=spec.use_fused_map, max_steps=spec.max_steps,
         device=dev, observers=observers, run_info=run_info)

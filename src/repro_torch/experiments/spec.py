@@ -2,10 +2,11 @@
 
 A :class:`SweepSpec` fixes a batched Monte-Carlo experiment — system,
 arrival rates, replicates, heuristics, seed, dispatcher, machine
-dynamics — so a sweep is reproducible from its spec alone. Heuristic
-names resolve through :mod:`repro_torch.core.policy`, dispatcher names
-through :mod:`repro_torch.core.dispatch`, dynamics names through
-:mod:`repro_torch.core.faults`, system names through the fleet
+dynamics, network — so a sweep is reproducible from its spec alone.
+Heuristic names resolve through :mod:`repro_torch.core.policy`,
+dispatcher names through :mod:`repro_torch.core.dispatch`, dynamics
+names through :mod:`repro_torch.core.faults`, network names through
+:mod:`repro_torch.core.network`, system names through the fleet
 registry (``"paper"``, ``"aws"``, ``"paper_x8"``, ...). Only the
 ``"poisson"`` scenario is ported.
 """
@@ -13,6 +14,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Union
+
+import numpy as np
 
 from repro_torch.core.types import SystemSpec
 
@@ -57,10 +60,13 @@ class SweepSpec:
     there. ``dynamics`` is the machine-failure process, a registered name
     (built-ins: ``"none"``, ``"bernoulli_updown"``, ``"site_outage"``,
     ``"degrade"``) or a ``faults.MachineDynamics`` instance; ``"none"``
-    runs the sweep without faults. ``observers`` are engine observers,
-    registered names (built-ins: ``"timeline"``,
+    runs the sweep without faults. ``network`` is the edge-cloud
+    transfer-cost model, a registered name (built-ins: ``"none"``,
+    ``"uniform_latency"``, ``"tiered"``) or a ``network.NetworkModel``
+    instance; ``"none"`` runs the sweep with free links. ``observers``
+    are engine observers, registered names (built-ins: ``"timeline"``,
     ``"fairness_trajectory"``, ``"task_log"``, ``"energy_budget"``,
-    ``"health"``) or
+    ``"health"``, ``"network"``) or
     :class:`repro_torch.core.observe.Observer` instances; their results
     come back on :attr:`SweepResult.aux` stacked under the same (H, R, K)
     dims as the metrics.
@@ -82,6 +88,7 @@ class SweepSpec:
     dispatcher: Union[str, object] = "sticky"
     observers: tuple = ()
     dynamics: Union[str, object] = "none"
+    network: Union[str, object] = "none"
 
     def __post_init__(self):
         object.__setattr__(self, "rates",
@@ -134,6 +141,20 @@ class SweepSpec:
             raise ValueError(
                 f"dynamics must be a registered name or a "
                 f"faults.MachineDynamics, got {self.dynamics!r}")
+        from repro_torch.core import network
+
+        if isinstance(self.network, str):
+            name = self.network.strip().lower()
+            if not network.is_registered(name):
+                raise ValueError(
+                    f"unknown network {self.network!r}; "
+                    f"choose from {network.list_networks()} "
+                    f"(or network.register(...) your own)")
+            object.__setattr__(self, "network", name)
+        elif not callable(getattr(self.network, "cost_tables", None)):
+            raise ValueError(
+                f"network must be a registered name or a "
+                f"network.NetworkModel, got {self.network!r}")
         from repro_torch.core import observe
 
         obs = []
@@ -172,6 +193,12 @@ class SweepSpec:
 
         return faults.resolve(self.dynamics)
 
+    def resolve_network(self):
+        """Materialize the :class:`repro_torch.core.network.NetworkModel`."""
+        from repro_torch.core import network
+
+        return network.resolve(self.network)
+
     def resolve_scenario(self):
         from repro_torch import scenarios
 
@@ -202,7 +229,7 @@ class SweepSpec:
 
     def to_json_dict(self) -> dict:
         """JSON-ready record of the spec (written into ``sweep.json``)."""
-        from repro_torch.core import dispatch, faults
+        from repro_torch.core import dispatch, faults, network
 
         d = {f.name: getattr(self, f.name)
              for f in dataclasses.fields(self)}
@@ -220,6 +247,8 @@ class SweepSpec:
             d["dispatcher"] = dispatch.to_json_dict(self.dispatcher)
         if not isinstance(self.dynamics, str):
             d["dynamics"] = faults.to_json_dict(self.dynamics)
+        if not isinstance(self.network, str):
+            d["network"] = network.to_json_dict(self.network)
         observers = []
         for ob in self.observers:
             if isinstance(ob, str):
@@ -234,3 +263,53 @@ class SweepSpec:
         d["rates"] = list(self.rates)
         d["heuristics"] = list(self.heuristics)
         return d
+
+    @classmethod
+    def from_json_dict(cls, d: dict) -> "SweepSpec":
+        """Rebuild a spec from :meth:`to_json_dict` output (the ``"spec"``
+        block of a saved ``sweep.json``). A payload without a network
+        (written before the network existed) loads with ``"none"``."""
+        from repro_torch.core import dispatch, faults, network, observe
+
+        d = dict(d)
+        system = d.get("system")
+        if isinstance(system, dict):
+            sites = system.get("site_of_machine")
+            tiers = system.get("tier_of_site")
+            system = SystemSpec(
+                eet=np.asarray(system["eet"], np.float32),
+                p_dyn=np.asarray(system["p_dyn"], np.float32),
+                p_idle=np.asarray(system["p_idle"], np.float32),
+                queue_size=int(system.get("queue_size", 2)),
+                fairness_factor=float(system.get("fairness_factor", 1.0)),
+                site_of_machine=None if sites is None else tuple(sites),
+                tier_of_site=None if tiers is None else tuple(tiers))
+        dispatcher = d.get("dispatcher", "sticky")
+        if isinstance(dispatcher, dict):
+            dispatcher = dispatch.from_json_dict(dispatcher)
+        dynamics = d.get("dynamics", "none")
+        if isinstance(dynamics, dict):
+            dynamics = faults.from_json_dict(dynamics)
+        net = d.get("network", "none")
+        if isinstance(net, dict):
+            net = network.from_json_dict(net)
+        return cls(
+            system=system,
+            rates=tuple(d["rates"]),
+            reps=int(d["reps"]),
+            n_tasks=int(d["n_tasks"]),
+            heuristics=tuple(d["heuristics"]),
+            seed=int(d["seed"]),
+            cv_run=float(d["cv_run"]),
+            queue_size=d.get("queue_size"),
+            fairness_factor=d.get("fairness_factor"),
+            use_fused_phase1=bool(d.get("use_fused_phase1", False)),
+            use_fused_map=bool(d.get("use_fused_map", False)),
+            max_steps=d.get("max_steps"),
+            scenario=d.get("scenario", "poisson"),
+            dispatcher=dispatcher,
+            observers=tuple(observe.from_json_dict(ob)
+                            if isinstance(ob, dict) else ob
+                            for ob in d.get("observers", ())),
+            dynamics=dynamics,
+            network=net)

@@ -10,9 +10,11 @@ comma list (``2,3,4.5``) or an inclusive ``start:stop:step`` range.
 walk) through the ``map_fused`` kernels, ``--fused-phase1`` ELARE's
 Phase I through ``phase1_map``. ``--dispatcher`` picks a federation's
 site-selection rule (``--list-dispatchers``). ``--dynamics`` injects a
-machine-failure process (``--list-dynamics``). ``--observers`` attaches
-engine observers (``--list-observers``), whose results are written as
-``observers.json`` and, for ``timeline``, ``timeline.csv``.
+machine-failure process (``--list-dynamics``), ``--network`` an
+edge-cloud transfer-cost model (``--list-networks``; ``--list-fleets``
+shows each fleet's tiers). ``--observers`` attaches engine observers
+(``--list-observers``), whose results are written as ``observers.json``
+and, for ``timeline``, ``timeline.csv``.
 Unknown names and bad grids exit with an ``error:`` line and status 2.
 """
 from __future__ import annotations
@@ -22,7 +24,7 @@ import sys
 import time
 
 from repro_torch import scenarios
-from repro_torch.core import dispatch, faults, observe, policy
+from repro_torch.core import dispatch, faults, network, observe, policy
 from repro_torch.core.device import resolve_device
 from repro_torch.experiments.results import SweepResult
 from repro_torch.experiments.runner import run_sweep
@@ -72,6 +74,14 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
                          "without faults.")
     ap.add_argument("--list-dynamics", action="store_true",
                     help="list the registered machine dynamics and exit")
+    ap.add_argument("--network", default="none",
+                    help="edge-cloud transfer-cost model (default: none; "
+                         "see --list-networks). 'none' runs the sweep "
+                         "with free links.")
+    ap.add_argument("--list-networks", action="store_true",
+                    help="list the registered network models and exit")
+    ap.add_argument("--list-fleets", action="store_true",
+                    help="list the registered fleet builders and exit")
     ap.add_argument("--observers", default="",
                     help="comma list of registered engine observers to "
                          "attach (e.g. timeline,task_log; see "
@@ -112,6 +122,12 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
     if args.list_dynamics:
         print_dynamics_list()
         raise SystemExit(0)
+    if args.list_networks:
+        print_network_list()
+        raise SystemExit(0)
+    if args.list_fleets:
+        print_fleet_list()
+        raise SystemExit(0)
     heuristics = tuple(
         h.strip() for h in args.heuristics.split(",") if h.strip()
     )
@@ -131,6 +147,10 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
         ap.error(f"unknown dynamics {args.dynamics!r}; registered dynamics: "
                  + ", ".join(faults.list_dynamics())
                  + " (run with --list-dynamics for details)")
+    if not network.is_registered(args.network):
+        ap.error(f"unknown network {args.network!r}; registered networks: "
+                 + ", ".join(network.list_networks())
+                 + " (run with --list-networks for details)")
     observers = tuple(
         o.strip() for o in args.observers.split(",") if o.strip())
     unknown = [o for o in observers if not observe.is_registered(o)]
@@ -155,6 +175,7 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
             dispatcher=args.dispatcher,
             observers=observers,
             dynamics=args.dynamics,
+            network=args.network,
         )
         args.device = resolve_device(args.device)
     except (ValueError, RuntimeError) as e:
@@ -188,6 +209,28 @@ def print_dynamics_list(file=None) -> None:
         print(f"{name:18s} {faults.describe(name)}", file=file)
 
 
+def print_network_list(file=None) -> None:
+    """One line per registered network model: name + description."""
+    file = file if file is not None else sys.stdout
+    for name in network.list_networks():
+        print(f"{name:18s} {network.describe(name)}", file=file)
+
+
+def print_fleet_list(file=None) -> None:
+    """One line per registered fleet builder: name, shape, tier layout."""
+    file = file if file is not None else sys.stdout
+    print(f"{'fleet':14s} {'types':>5s} {'machines':>8s} {'sites':>5s} "
+          f"{'tiers':14s}", file=file)
+    for name in scenarios.list_fleets():
+        spec = scenarios.get_fleet(name).build()
+        S, M = spec.eet.shape
+        tiers = spec.tiers
+        label = ("flat" if max(tiers) == 0
+                 else ",".join(str(t) for t in tiers))
+        print(f"{name:14s} {S:5d} {M:8d} {spec.n_sites:5d} {label:14s}",
+              file=file)
+
+
 def print_observer_list(file=None) -> None:
     """One line per registered engine observer: name + description."""
     file = file if file is not None else sys.stdout
@@ -219,6 +262,8 @@ def main(argv=None) -> SweepResult:
            if n_sites > 1 else "")
     if spec.dynamics != "none":
         fed += f" dynamics={spec.dynamics}"
+    if spec.network != "none":
+        fed += f" network={spec.network}"
     print(f"sweep: {len(spec.heuristics)} heuristics x "
           f"{len(spec.rates)} rates x {spec.reps} reps "
           f"({n} traces of {spec.n_tasks} tasks) on system={args.system}"

@@ -80,8 +80,8 @@ class TieredFleet:
     ``cloud_replicas`` copies of the base machines, each
     ``cloud_speedup`` times faster (EET divided) and mains-powered
     (``p_idle = 0``). The sites are unequal, so the engine folds them
-    with masked views. The tiers matter only once a network is attached,
-    which the port does not have yet.
+    with masked views. The tiers matter once a network is attached: tasks
+    originate on the device sites and pay their link to the cloud.
     """
 
     kind: ClassVar[str] = "tiered"

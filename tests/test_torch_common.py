@@ -55,13 +55,23 @@ def stack_traces(traces):
 
 
 def assert_metrics_match(ref: dict, port: dict, what: str,
-                         energy_rel: float = 1e-5) -> None:
+                         energy_rel: float = 1e-5,
+                         n_machines: int | None = None) -> None:
     """Counters and makespan identical; energies within ``energy_rel``
-    (sums over machines may run in another order)."""
+    (sums over machines may run in another order). ``n_machines`` is
+    given where ``ref`` is the JAX engine's: on a system of up to
+    :data:`repro_torch.core.engine.SEQ_SUM_MAX` (8) machines its idle
+    energy is then held bit for bit, since the port sums it in the order
+    of the reference's compiled code (past 8 machines XLA vectorizes the
+    sum; ROADMAP C)."""
     for k in COUNT_FIELDS + ("makespan",):
         np.testing.assert_array_equal(np.asarray(port[k]),
                                       np.asarray(ref[k]),
                                       err_msg=f"{what}: {k}")
+    if n_machines is not None and n_machines <= tengine.SEQ_SUM_MAX:
+        np.testing.assert_array_equal(np.asarray(port["energy_idle"]),
+                                      np.asarray(ref["energy_idle"]),
+                                      err_msg=f"{what}: energy_idle")
     for k in ENERGY_FIELDS:
         np.testing.assert_allclose(np.asarray(port[k], np.float64),
                                    np.asarray(ref[k], np.float64),

@@ -3,9 +3,12 @@ the pure-Python oracle (``repro.core.pyengine``).
 
 On dyadic traces (``tests/test_engine.py``'s rounding) the per-type
 counters and the makespan must be identical for all 8 heuristics, with
-and without ``use_fused_map``; energies agree within rel 1e-5 because the
-sums over machines may run in another order. The JAX side runs its lax
-path: lax == fused is pinned by ``tests/test_map_fused.py``.
+and without ``use_fused_map``, and so must the idle energy against the
+JAX engine (the port sums it left to right with an FMA per machine, as
+the reference's compiled code does up to 8 machines); the other
+energies, and all of them against the float64 oracle, agree within rel
+1e-5. The JAX side runs its lax path: lax == fused is pinned by
+``tests/test_map_fused.py``.
 """
 import functools
 
@@ -61,7 +64,8 @@ def test_engine_matches_jax_and_oracle(heuristic, fused):
     jax_rows, oracle = _reference(heuristic)
     for i, seed in enumerate(SEEDS):
         row = {k: v[i] for k, v in port.items()}
-        assert_metrics_match(jax_rows[i], row, f"{heuristic} seed {seed} jax")
+        assert_metrics_match(jax_rows[i], row, f"{heuristic} seed {seed} jax",
+                             n_machines=TSPEC.n_machines)
         assert_metrics_match(oracle[i], row, f"{heuristic} seed {seed} oracle")
 
 
@@ -73,7 +77,8 @@ def test_fused_phase1_engine_matches_jax(heuristic):
     jax_rows, _ = _reference(heuristic)
     for i in range(len(SEEDS)):
         assert_metrics_match(jax_rows[i], {k: v[i] for k, v in port.items()},
-                             f"{heuristic} phase1 seed {SEEDS[i]}")
+                             f"{heuristic} phase1 seed {SEEDS[i]}",
+                             n_machines=TSPEC.n_machines)
 
 
 def _single(trace, i):
@@ -108,3 +113,22 @@ def test_task_conservation():
         assert torch.equal(total, m.arrived_by_type)
         assert int(m.arrived_by_type.sum()) == N_TASKS
         assert float(m.energy_wasted) <= float(m.energy_dynamic) + 1e-4
+
+
+def test_unfaulted_idle_energy_bit_for_bit_with_jax():
+    """The case that showed the unfaulted idle energy one ulp off the
+    reference's (paper, FELARE, ``jax_trace(3, 100, 4.0)``: 0.53593755
+    against 0.5359375 while the port summed rounded products with
+    ``torch.sum``): the Metrics' idle energy, summed left to right with
+    an FMA per machine as XLA's CPU code sums it, is the reference's bit
+    for bit, batched and single, plain and fused."""
+    tr = jax_trace(3, 100, 4.0)
+    want = np.asarray(jengine.simulate(tr, SPEC, "FELARE").energy_idle)
+    batch = stack_traces([tr, jax_trace(5, 100, 4.0)])
+    for fused in (False, True):
+        got = tengine.simulate_batch(batch, TSPEC, "FELARE", device=CPU,
+                                     use_fused_map=fused).energy_idle
+        assert got[0].numpy().tobytes() == want.tobytes(), fused
+        one = tengine.simulate(_single(batch, 0), TSPEC, "FELARE",
+                               device=CPU, use_fused_map=fused)
+        assert one.energy_idle.numpy().tobytes() == want.tobytes(), fused

@@ -84,7 +84,8 @@ def test_engine_matches_jax_and_oracle(system, heuristic, dispatcher,
     for i, seed in enumerate(SEEDS):
         row = {k: v[i] for k, v in port.items()}
         what = f"{system} {heuristic} {dispatcher} seed {seed}"
-        assert_metrics_match(jax_rows[i], row, what + " jax")
+        assert_metrics_match(jax_rows[i], row, what + " jax",
+                             n_machines=spec.n_machines)
         assert_metrics_match(oracle[i], row, what + " oracle")
         np.testing.assert_array_equal(sites[i], oracle[i]["task_log"]["site"],
                                       err_msg=what + " sites")

@@ -743,3 +743,38 @@ def test_faulted_fused_run_matches_faulted_plain_run_on_card(
                 (system, name, leaf)
     if dynamics != "degrade":
         assert int(aux_k["task_log"]["retries"].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heuristic,dispatcher", [("FELARE", "fair_spill"),
+                                                  ("ELARE", "tier_aware")])
+def test_networked_fused_run_matches_networked_plain_run_on_card(
+        heuristic, dispatcher):
+    """Under the default ``tiered`` network on tiered_x4 (masked fold,
+    in-transit tasks hidden from the map kernels) the kernel path equals
+    the plain path on the card, every Metrics field and aux leaf bit for
+    bit (task_log with its ready times, the network series)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from repro_torch import scenarios
+    from repro_torch.core import engine
+
+    spec = scenarios.get_fleet("tiered_x4").build()
+    traces = scenarios.DEFAULT.stack(0, (6.0, 12.0), 3, 300, spec.eet,
+                                     device="cuda")
+    flat = type(traces)(*(x.reshape((-1,) + x.shape[2:]) for x in traces))
+    mf.LAUNCHES.update({k: 0 for k in mf.LAUNCHES})
+    runs = [engine.simulate_batch(
+        flat, spec, heuristic, observers=("task_log", "network"),
+        dispatcher=dispatcher, network="tiered", device="cuda",
+        use_fused_map=fused) for fused in (True, False)]
+    assert mf.LAUNCHES["map_decide"] > 0
+    (mk, aux_k), (mp, aux_p) = runs
+    for a, b, f in zip(mk, mp, mk._fields):
+        assert torch.equal(a, b), f
+    for name in aux_k:
+        for leaf in aux_k[name]:
+            assert torch.equal(aux_k[name][leaf], aux_p[name][leaf]), \
+                (dispatcher, name, leaf)
+    if dispatcher == "fair_spill":  # hash homes: links are paid
+        assert bool((aux_k["task_log"]["ready_time"] > flat.arrival).any())

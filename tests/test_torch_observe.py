@@ -89,12 +89,14 @@ def assert_aux_equal(jaux: dict, taux: dict, what: str, close=()) -> None:
                 np.testing.assert_array_equal(got, want, err_msg=msg)
 
 
-def assert_metrics_equal(jm, tm, what: str) -> None:
-    """The engine's own parity: counters and makespans identical,
-    energies within rel 1e-5 (its sums over machines run in another
-    order; the observers' sums are held bit for bit)."""
+def assert_metrics_equal(jm, tm, what: str,
+                         n_machines: int = SPEC.n_machines) -> None:
+    """The engine's own parity: counters, makespans and, up to 8
+    machines, the idle energy identical; the other energies within rel
+    1e-5 (the engine's own sums; the observers' are held bit for bit)."""
     assert_metrics_match({k: np.asarray(v) for k, v in jm._asdict().items()},
-                         interop.metrics_to_numpy(tm), what)
+                         interop.metrics_to_numpy(tm), what,
+                         n_machines=n_machines)
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,7 +127,7 @@ def _port_observed(heuristic, observers, fleet=None, dispatcher=None,
 def test_builtins_registered():
     names = tobs.list_observers()
     assert names == ["energy_budget", "fairness_trajectory", "health",
-                     "task_log", "timeline"]
+                     "network", "task_log", "timeline"]
     for name in names:
         assert tobs.is_registered(name)
         assert tobs.describe(name) == jobs.describe(name)
@@ -172,12 +174,12 @@ def test_json_kinds_round_trip_and_unported_kinds_raise():
     for ob in (tobs.Timeline(n_buckets=8, per_site=True), tobs.TaskLog(),
                tobs.FairnessTrajectory(fairness_factor=0.5),
                tobs.EnergyBudget(capacity=12.5), tobs.EnergyBudget(),
-               tobs.Health(n_buckets=8)):
+               tobs.Health(n_buckets=8), tobs.Network(n_buckets=8)):
         d = json.loads(json.dumps(ob.to_json_dict()))
         assert tobs.from_json_dict(d) == ob
-    assert "network" in jobs._KINDS
-    with pytest.raises(KeyError, match="ROADMAP A5"):
-        tobs.from_json_dict({"kind": "network"})
+    # every reference kind is ported now: none raises any more
+    assert set(tobs._KINDS) == set(jobs._KINDS)
+    assert all(cls is not None for cls in tobs._KINDS.values())
     with pytest.raises(ValueError, match="unknown observer kind"):
         tobs.from_json_dict({"kind": "bogus"})
 
@@ -247,7 +249,7 @@ def test_observers_on_federations(fleet, dispatcher, fused):
     obs_t = ("task_log", tobs.Timeline(per_site=True))
     jm, jaux = _jax_observed("FELARE", obs_j, fleet, dispatcher)
     tm, taux = _port_observed("FELARE", obs_t, fleet, dispatcher, fused)
-    assert_metrics_equal(jm, tm, fleet)
+    assert_metrics_equal(jm, tm, fleet, _fleet(fleet).n_machines)
     wide = _fleet(fleet).n_machines > 8
     assert_aux_equal(jaux, taux, fleet,
                      close={("timeline", "e_idle")} if wide else ())
@@ -507,8 +509,9 @@ def test_cli_list_observers_and_unknown_name(capsys):
         tsweep.build_spec(["--list-observers"])
     assert e.value.code == 0
     out = capsys.readouterr().out
-    assert len(out.splitlines()) == 5
+    assert len(out.splitlines()) == 6
     assert "timeline" in out and "energy_budget" in out and "health" in out
+    assert "network" in out
     with pytest.raises(SystemExit) as e:
         tsweep.build_spec(["--device", "cpu", "--observers", "timeline,bogus"])
     assert e.value.code == 2

@@ -52,7 +52,8 @@ def test_run_sweep_matches_jax_on_reference_traces():
     assert got.metrics.makespan.shape == (3, 2, 2)
     ref_m = {k: np.asarray(v) for k, v in ref.metrics._asdict().items()}
     got_m = got.metrics._asdict()
-    assert_metrics_match(ref_m, got_m, "run_sweep")
+    assert_metrics_match(ref_m, got_m, "run_sweep",
+                         n_machines=SPEC.n_machines)
     np.testing.assert_array_equal(got.completion_rate, ref.completion_rate)
 
 
@@ -93,7 +94,8 @@ def test_federated_run_sweep_matches_jax_on_reference_traces():
         got = texp.run_sweep(spec, traces=[np.asarray(x) for x in stack],
                              device=CPU)
         assert_metrics_match(ref_m, got.metrics._asdict(),
-                             f"paper_x2 fair_spill fused={fused}")
+                             f"paper_x2 fair_spill fused={fused}",
+                             n_machines=8)
 
 
 def test_cli_federated_probe_fused_changes_no_counter(capsys):
