@@ -13,11 +13,12 @@ matmuls and cuDNN alike).
 
 Phases, one JSON line each; any failed check raises, so the script
 exits non-zero and prints no result line. Phases 1-8 run in this order
-in this process; phases 9-19 run in four processes at once on the same
+in this process; phases 9-20 run in six processes at once on the same
 card (``GROUPS``: the flat sweep; the flat sweep observed and the
 faulted runs' parity; the paper_x8 sweeps, observed and faulted; the
-tiered_x4 sweep and the network), each holding its own launch counts,
-and their lines arrive interleaved:
+tiered_x4 sweep and the network; the workload scenarios and the flat
+synthetic fleets; the synthetic federations), each holding its own
+launch counts, and their lines arrive interleaved:
 
   1. env      torch and CUDA versions, the card's name and power limit;
   2. build    nvcc builds the kernels from ``src/repro_torch/kernels/csrc``,
@@ -34,12 +35,16 @@ and their lines arrive interleaved:
               the card, bit for bit (``torch.equal`` on every output): the
               map kernels at the flat path's shape and at a wide one, over
               every nominator x key x drop rule with the suffered split on
-              and off, and in their per-row EET form at the federation's
-              block-fold and masked-fold shapes (task types int32);
+              and off, at the synthetic fleets' 8 x 6 (cvb) and 6 x 6
+              (range) tables, and in their per-row EET form at the
+              federation's block-fold and masked-fold shapes and at
+              mixed_sites' fold of 7 machines in sites of 4 and 3
+              (phase1_map too; task types int32);
               evict_stats also with row 0 without a free machine and
               deadlines at start + e and at +inf, at the flat, block-fold
               and masked-fold shapes; ``balance_scan`` at the federated
-              path's shape, at F = 1, 32, 37 and 1024, with more new tasks
+              path's shape, at F = 2 (the two-site fleets' walk), 1, 32,
+              37 and 1024, with more new tasks
               than one tile of the kernel and N off every vector grain,
               over no, sparse and all tasks new, tied loads, dead-site
               penalties and loads too large for the packed keys;
@@ -74,8 +79,10 @@ and their lines arrive interleaved:
               one ``scaled_dot_product_attention`` call on the same inputs
               (timed here, never called by the port), each kernel's share
               of its bound and its ratio to that call. map_decide and
-              evict_stats at the flat, paper_x8 and tiered_x4 shapes,
-              balance_scan at the last two, the SSD scan with bf16 B and C
+              evict_stats at the flat, paper_x8, tiered_x4, cvb (8 x 6)
+              and mixed_sites (masked fold of 7) shapes, phase1_map at the
+              flat, cvb and mixed_sites ones, balance_scan at paper_x8's
+              and tiered_x4's, the SSD scan with bf16 B and C
               as the serve path gives them (and with float32 B and C);
               then flash attention's float32 instantiation at the same
               shape, and decode attention with 2, 4 and 8 query heads per
@@ -89,8 +96,11 @@ and their lines arrive interleaved:
               device-busy time, kernels per iteration, which must not grow
               with the sites), of the faulted paper_x8 sweeps (FELARE +
               health_aware under the outages, FELARE + fair_spill under
-              churn; see phase 16), and of tiered_x4 FELARE + fair_spill
-              without a network and under phase 18's;
+              churn; see phase 16), of tiered_x4 FELARE + fair_spill
+              without a network and under phase 18's, and of phase 20's
+              FELARE sweeps (the seven workload scenarios as one batch,
+              wide-fleet, mixed_sites + least_queued, federated-skew +
+              sticky by type);
   7. serve    zamba2-2.7b at its published width (54 layers, d_model 2560,
               bf16, random weights from torch.Generator seed 0) serves 8
               requests of 1024 prompt tokens (numpy seed 0) for 64 greedy
@@ -198,7 +208,28 @@ and their lines arrive interleaved:
               card: every
               Metrics field and aux leaf identical (ready times, the
               network series); network="none" on the fed phase's tiered_x4
-              traces gives that phase's Metrics.
+              traces gives that phase's Metrics;
+ 20. scenarios  the reference's workload scenarios and synthetic fleets
+              at full width (5 rates x 30 replicates x 2000 tasks): the
+              seven workload-only scenarios (bursty, diurnal, flash-crowd,
+              heavy-tail, drift, tight-deadlines, bursty-heavy-tail) on
+              the paper's system as one batch of 1050 traces through
+              ``simulate_sweep``, FELARE on the fused map and ELARE on
+              phase1_map, and bursty again end to end through
+              ``run_sweep`` (its Metrics must be the batch's bursty rows);
+              arrivals sorted and finite, MMPP's inter-arrival CV^2 above
+              1.15 and Poisson's within 0.1 of 1; wide-fleet (the cvb
+              fleet, 8 types on 6 machines) with FELARE and ELARE at rates
+              2-8; mixed_sites (sites of 4 and 3 machines, masked fold)
+              with FELARE + least_queued and + min_eet, and
+              federated-skew (paper_x2 under a skewed mix) with FELARE +
+              sticky by type and + fair_spill, at 4-16 tasks/s. Each
+              run's launch counts, zeroed just before it, show every
+              kernel of its path on every batched event;
+     scenarios_parity  every run above, range FELARE (6 x 6) and ELARE
+              + least_queued on phase1_map over mixed_sites, on 5
+              replicates of 300 tasks through the kernels and the plain
+              path on the card: Metrics identical (sha256).
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, one
 ``{"kernels": [...]}`` line (a row with ``by_shape`` gives each path
@@ -293,9 +324,42 @@ NET_ARMS = (("ELARE", "tier_aware"), ("FELARE", "tier_aware"),
             ("FELARE", "fair_spill"))
 NET_OBSERVERS = ("task_log", "network")
 NET_PARITY_REPS, NET_PARITY_TASKS = 5, 300
+# The workload scenarios and synthetic fleets: the reference's seven
+# workload-only scenarios on the paper's system, one batch of 7 x 150
+# traces; wide-fleet (the cvb fleet, 8 types on 6 machines) at the paper's
+# rates; mixed_sites (sites of 4 and 3 machines, masked fold) and
+# federated-skew (paper_x2 under a skewed mix, block fold) at twice the
+# paper's rates (its per-site rates over two sites). All at 30 x 2000.
+# Each run: (label, scenario, system, rates, heuristic, dispatcher, shape).
+WORKLOAD_SCENARIOS = ("bursty", "diurnal", "flash-crowd", "heavy-tail",
+                      "drift", "tight-deadlines", "bursty-heavy-tail")
+PAIR_RATES = tuple(2 * r for r in RATES)         # two sites, total tasks/s
+SCENARIO_RUNS = (
+    ("wide-fleet FELARE", "wide-fleet", None, RATES, "FELARE", None,
+     "cvb"),
+    ("wide-fleet ELARE", "wide-fleet", None, RATES, "ELARE", None, "cvb"),
+    ("mixed_sites FELARE least_queued", "poisson", "mixed_sites",
+     PAIR_RATES, "FELARE", "least_queued", "mixed_sites"),
+    ("mixed_sites FELARE min_eet", "poisson", "mixed_sites", PAIR_RATES,
+     "FELARE", "min_eet", "mixed_sites"),
+    ("federated-skew FELARE sticky by type", "federated-skew", None,
+     PAIR_RATES, "FELARE", "sticky_by_type", "paper_x2"),
+    ("federated-skew FELARE fair_spill", "federated-skew", None, PAIR_RATES,
+     "FELARE", "fair_spill", "paper_x2"),
+)
+# Fused against plain at every new shape, on a cut of 5 x 300: the runs
+# above, range (6 types on 6 machines) and ELARE on phase1_map over the
+# mixed_sites fold.
+SCENARIO_PARITY_RUNS = SCENARIO_RUNS + (
+    ("range FELARE", "poisson", "range", RATES, "FELARE", None, "range"),
+    ("mixed_sites ELARE least_queued", "poisson", "mixed_sites", PAIR_RATES,
+     "ELARE", "least_queued", "mixed_sites"),
+)
+SCENARIO_PARITY_REPS, SCENARIO_PARITY_TASKS = 5, 300
 # balance_scan: the federated path's shape, then more new tasks than one
 # 4096-task tile of the kernel, and N off the 16-task vector grain.
-BALANCE_SHAPES = (dict(B=150, N=FED_TASKS, F=8), dict(B=8, N=10_000, F=32),
+BALANCE_SHAPES = (dict(B=150, N=FED_TASKS, F=8), dict(B=150, N=2000, F=2),
+                  dict(B=8, N=10_000, F=32),
                   dict(B=8, N=10_000, F=37), dict(B=6, N=4001, F=1),
                   dict(B=6, N=5003, F=1024))
 BALANCE_DENSITIES = (0.0, 0.01, 0.5, 1.0)
@@ -308,6 +372,11 @@ BALANCE_LOADS = {"equal": BALANCE_DENSITIES, "mixed": BALANCE_DENSITIES,
 BLOCK_ROWS = dict(B=150, F=8, N=FED_TASKS, m=4, S=4)
 MASKED_ROWS = dict(B=150, sites=(0,) * 4 + (1,) * 4 + (2,) * 4 + (3,) * 8,
                    N=TIER_TIMED_TASKS, S=4)
+# The synthetic fleets' shapes: cvb's 8 x 6 and range's 6 x 6 tables, and
+# mixed_sites' masked fold (B * 2 rows of all 7 machines).
+FLEET_SHAPES = {"cvb": dict(B=150, N=2000, M=6, S=8),
+                "range": dict(B=150, N=2000, M=6, S=6)}
+MIXED_ROWS = dict(B=150, sites=(0,) * 4 + (1,) * 3, N=2000, S=4)
 KERNEL_SOURCES = {
     "map_decide": ("src/repro_torch/kernels/csrc/map_fused.cu",
                    "src/repro/kernels/map_fused/kernel.py:195"),
@@ -529,7 +598,9 @@ def evict_stats_args(x):
 
 
 def phase1_args(x):
-    return (x["start"], x["eet"][x["task_type"]].contiguous(),
+    from repro_torch.core.eet import type_rows
+
+    return (x["start"], type_rows(x["eet"], x["task_type"].long()).contiguous(),
             x["deadline"], x["p_dyn"], x["pending"], x["qfree"])
 
 
@@ -553,7 +624,8 @@ def check_kernels(device) -> dict:
 
     errs = {k: 0.0 for k in KERNEL_SOURCES}
     cases = 0
-    for label, shape in (("main", MAIN_SHAPE), ("wide", WIDE_SHAPE)):
+    for label, shape in (("main", MAIN_SHAPE), ("wide", WIDE_SHAPE),
+                         *FLEET_SHAPES.items()):
         x = kernel_inputs(**shape, seed=11, device=device)
         for nom in mf.NOMINATOR_KINDS:
             for key in mf.KEY_KINDS:
@@ -646,7 +718,7 @@ def check_federation_kernels(device, errs: dict) -> None:
     their plain versions on the card, bit for bit."""
     import torch
 
-    from repro_torch.kernels import map_fused
+    from repro_torch.kernels import map_fused, phase1_map
     from repro_torch.kernels.map_fused import ops as mf
 
     cases = 0
@@ -666,7 +738,8 @@ def check_federation_kernels(device, errs: dict) -> None:
              cases=cases, equal=True)
     for label, shape, block in (
             ("block_fold", BLOCK_ROWS, True),
-            ("masked_fold", MASKED_ROWS, False)):
+            ("masked_fold", MASKED_ROWS, False),
+            ("mixed_sites", MIXED_ROWS, False)):
         sites = shape.get("sites") or tuple(
             f for f in range(shape["F"]) for _ in range(shape["m"]))
         x = per_row_inputs(shape["B"], shape["N"], shape["S"], sites,
@@ -693,6 +766,13 @@ def check_federation_kernels(device, errs: dict) -> None:
             errs["evict_stats"] = max(errs["evict_stats"], compare(
                 out_k, map_fused.evict_stats_plain(*evict_stats_args(xe)),
                 f"evict_stats {label}{case}"))
+        if label == "mixed_sites":      # ELARE's Phase I over the fold
+            out_k = phase1_map.phase1_map(*phase1_args(x))
+            torch.cuda.synchronize()
+            errs["phase1_map"] = max(errs["phase1_map"], compare(
+                out_k, phase1_map.phase1_map_plain(*phase1_args(x)),
+                f"phase1_map {label}"))
+            n += 1
         emit("kernels", shape=label, rows=int(x["eet"].shape[0]),
              N=shape["N"], M=int(x["eet"].shape[2]), eet=list(x["eet"].shape),
              cases=n + 2, equal=True)
@@ -1792,6 +1872,198 @@ def run_network_parity(device, tier_traces, tier_res) -> None:
 
 
 # --------------------------------------------------------------------------
+# Workload scenarios and synthetic fleets on the kernel path
+# --------------------------------------------------------------------------
+def scenario_spec(run: tuple, reps: int, n_tasks: int, fused=True):
+    """The SweepSpec of a :data:`SCENARIO_RUNS` entry: FELARE on the fused
+    map (and the balance walk), ELARE on the fused Phase I."""
+    from repro_torch.core import dispatch
+    from repro_torch.experiments import SweepSpec
+
+    _, scenario, system, rates, heuristic, disp, _ = run
+    if disp == "sticky_by_type":
+        disp = dispatch.Sticky(by_type=True)
+    return SweepSpec(system=system, scenario=scenario, rates=rates,
+                     reps=reps, n_tasks=n_tasks, heuristics=(heuristic,),
+                     seed=0, dispatcher=disp or "sticky",
+                     use_fused_map=fused and heuristic == "FELARE",
+                     use_fused_phase1=fused and heuristic == "ELARE")
+
+
+def expected_launches(run: tuple, steps: int) -> dict:
+    """One launch per batched event of each kernel on ``run``'s path: the
+    fused map carries the balance walk, the fused Phase I does not."""
+    felare = run[4] == "FELARE"
+    walk = felare and run[5] in ("least_queued", "fair_spill")
+    return {"map_decide": steps if felare else 0,
+            "evict_stats": steps if felare else 0,
+            "phase1_map": 0 if felare else steps,
+            "balance_scan": steps if walk else 0}
+
+
+def gaps_cv2(arrival) -> float:
+    """Mean over the traces of the inter-arrival CV^2 (1 for Poisson)."""
+    g = arrival.diff(dim=-1).double()
+    return float((g.var(dim=-1, unbiased=False) / g.mean(dim=-1) ** 2)
+                 .mean())
+
+
+def run_scenario_workloads(device, reps: int, n_tasks: int) -> dict:
+    """The seven workload-only scenarios on the paper's system as one batch
+    of 7 x (5 rates x ``reps``) traces: FELARE on the fused map and ELARE
+    on the fused Phase I through ``simulate_sweep``, each kernel once per
+    batched event; the arrivals sorted and finite, MMPP's inter-arrival
+    CV^2 above 1 and Poisson's about 1; then ``bursty`` end to end
+    through ``run_sweep``, whose FELARE Metrics must be the batch's bursty
+    rows bit for bit. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.types import Trace
+    from repro_torch.experiments import SweepSpec, run_sweep, simulate_sweep
+
+    system = SweepSpec().resolve_system()
+    t0 = time.perf_counter()
+    stacks = {name: SweepSpec(scenario=name).resolve_scenario().stack(
+        0, RATES, reps, n_tasks, system.eet, device=device)
+        for name in WORKLOAD_SCENARIOS}
+    synth_seconds = time.perf_counter() - t0
+    cv2 = {}
+    for name, st in stacks.items():
+        a = st.arrival
+        require(bool(torch.isfinite(a).all()) and bool((a >= 0).all()),
+                f"{name}: non-finite or negative arrivals")
+        require(bool((a.diff(dim=-1) >= 0).all()),
+                f"{name}: arrivals not sorted")
+        cv2[name] = gaps_cv2(a)
+    require(cv2["bursty"] > 1.15 and cv2["bursty-heavy-tail"] > 1.15,
+            f"MMPP arrivals not bursty: CV^2 {cv2}")
+    require(0.9 < cv2["heavy-tail"] < 1.1,
+            f"Poisson arrivals: CV^2 {cv2['heavy-tail']}, not about 1")
+    B = len(RATES) * reps
+    batch = Trace(*(torch.cat([x.reshape((B,) + x.shape[2:])
+                               for x in leaves])
+                    for leaves in zip(*stacks.values())))
+    total, results = {}, {}
+    for heuristic, kw in (("FELARE", dict(use_fused_map=True)),
+                          ("ELARE", dict(use_fused_phase1=True))):
+        info = {}
+        reset_counts()
+        m = simulate_sweep(batch, system, (heuristic,), device=device,
+                           run_info=info, **kw)
+        counts = read_counts()
+        steps = info[heuristic]["loop_iterations"]
+        expect = expected_launches(("", "", None, RATES, heuristic, None,
+                                    "paper"), steps)
+        require(steps > 0, f"scenarios {heuristic}: no batched event")
+        for k, v in expect.items():
+            require(counts[k] == v,
+                    f"scenarios {heuristic}: {k}: {counts[k]} launches, "
+                    f"{v} expected")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        arrived = m.arrived_by_type[0].sum(-1)
+        done = (m.completed_by_type + m.missed_by_type
+                + m.cancelled_by_type)[0].sum(-1)
+        require(bool(np.all(arrived == n_tasks))
+                and bool(np.all(done == n_tasks)),
+                f"scenarios {heuristic}: tasks not conserved")
+        rate = (m.completed_by_type[0].sum(-1)
+                / m.arrived_by_type[0].sum(-1)).reshape(
+            len(WORKLOAD_SCENARIOS), len(RATES), reps).mean(-1)
+        emit("scenarios", run=f"paper {heuristic}", traces=int(arrived.size),
+             seconds=info[heuristic]["seconds"], event_steps=steps,
+             ms_per_iteration=info[heuristic]["seconds"] * 1e3 / steps,
+             launches=counts, expected=expect, rates=list(RATES),
+             completion_rate={name: [float(v) for v in rate[i]]
+                              for i, name in enumerate(WORKLOAD_SCENARIOS)})
+        results[heuristic] = m
+    # bursty end to end through run_sweep, unchanged
+    reset_counts()
+    res = run_sweep(SweepSpec(scenario="bursty", rates=RATES, reps=reps,
+                              n_tasks=n_tasks, heuristics=("FELARE",),
+                              seed=0, use_fused_map=True), device=device)
+    counts = read_counts()
+    summarize(res, "paper FELARE bursty (run_sweep)", phase="scenarios")
+    steps = res.run_info["FELARE"]["loop_iterations"]
+    require(counts["map_decide"] == steps and counts["evict_stats"] == steps,
+            f"bursty run_sweep: {counts} launches, {steps} batched events")
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    i = WORKLOAD_SCENARIOS.index("bursty")
+    for leaf, got in zip(results["FELARE"], res.metrics):
+        want = leaf[0, i * B:(i + 1) * B].reshape(got.shape[1:])
+        require(np.array_equal(got[0], want),
+                "bursty: run_sweep differs from its rows of the batch")
+    emit("scenarios", run="workload checks", synth_seconds=synth_seconds,
+         inter_arrival_cv2=cv2, bursty_run_sweep="Metrics identical to "
+         "the batch's bursty rows", bursty_event_steps=steps)
+    return total
+
+
+def run_scenario_fleets(device, reps: int, n_tasks: int,
+                        shapes: tuple) -> tuple:
+    """The :data:`SCENARIO_RUNS` at ``shapes`` at full width through
+    ``run_sweep``, each run's launch counts zeroed just before it and held
+    to one launch per batched event of every kernel of its path; then the
+    :data:`SCENARIO_PARITY_RUNS` at those shapes on a 5 x 300 cut through
+    the kernels and the plain path on the card, Metrics bit for bit
+    (sha256). Returns the launch counts of the runs and by shape."""
+    from repro_torch.experiments import run_sweep
+
+    total, by_shape = {}, {}
+
+    def tally(run, counts):
+        for d in (total, by_shape.setdefault(run[6], {})):
+            for k, v in counts.items():
+                d[k] = d.get(k, 0) + v
+
+    for run in (r for r in SCENARIO_RUNS if r[6] in shapes):
+        reset_counts()
+        res = run_sweep(scenario_spec(run, reps, n_tasks), device=device)
+        counts = read_counts()
+        summarize(res, run[0], phase="scenarios")
+        steps = res.run_info[run[4]]["loop_iterations"]
+        expect = expected_launches(run, steps)
+        emit("scenarios", run=run[0], shape=run[6], launches=counts,
+             expected=expect)
+        require(steps > 0, f"{run[0]}: no batched event")
+        for k, v in expect.items():
+            require(counts[k] == v,
+                    f"{run[0]}: {k}: {counts[k]} launches, {v} expected")
+        tally(run, counts)
+    digests, seconds = {}, {}
+    for run in (r for r in SCENARIO_PARITY_RUNS if r[6] in shapes):
+        out = []
+        for fused in (True, False):
+            reset_counts()
+            res = run_sweep(scenario_spec(run, SCENARIO_PARITY_REPS,
+                                          SCENARIO_PARITY_TASKS, fused),
+                            device=device)
+            counts = read_counts()
+            if fused:
+                expect = expected_launches(
+                    run, res.run_info[run[4]]["loop_iterations"])
+                for k, v in expect.items():
+                    require(counts[k] == v,
+                            f"{run[0]} (cut): {k}: {counts[k]} launches, "
+                            f"{v} expected")
+                tally(run, counts)
+            else:
+                require(not any(counts.values()),
+                        f"{run[0]}: the plain path launched {counts}")
+            out.append(metrics_digest(res, run[4]))
+            seconds[f"{run[0]} {'fused' if fused else 'plain'}"] = \
+                res.run_info[run[4]]["seconds"]
+        require(out[0] == out[1], f"{run[0]}: fused and plain Metrics differ")
+        digests[run[0]] = out[0]
+    emit("scenarios_parity", plain_on_card="every Metrics field identical "
+         "(sha256)", reps=SCENARIO_PARITY_REPS, tasks=SCENARIO_PARITY_TASKS,
+         sha256=digests, seconds=seconds)
+    return total, by_shape
+
+
+# --------------------------------------------------------------------------
 # Serve path: zamba2-2.7b at full width
 # --------------------------------------------------------------------------
 def serve_prompt():
@@ -2119,6 +2391,8 @@ def profile_main_path(device, reps: int, n_tasks: int, fed_reps: int,
     paper_x8, whose kernels per iteration must agree within 2, and of the
     faulted paper_x8 sweeps (the outage under health_aware, churn under
     fair_spill)."""
+    import torch
+
     from repro_torch import scenarios
     from repro_torch.core import api, dispatch, engine, policy
 
@@ -2195,6 +2469,41 @@ def profile_main_path(device, reps: int, n_tasks: int, fed_reps: int,
     emit("profile", run="networked against unnetworked tiered_x4",
          kernels_per_iteration=networked)
 
+    # the scenarios phase: the seven workload scenarios as one batch, and
+    # the synthetic fleets' shapes
+    from repro_torch.core.types import Trace
+    from repro_torch.experiments import SweepSpec
+
+    system = api.paper_system()
+    stacks = [SweepSpec(scenario=name).resolve_scenario().stack(
+        0, RATES, reps, n_tasks, system.eet, device=device)
+        for name in WORKLOAD_SCENARIOS]
+    batch = Trace(*(torch.cat([x.reshape((-1,) + x.shape[2:])
+                               for x in leaves]) for leaves in zip(*stacks)))
+    sim = engine.make_simulator(
+        policy.with_fused_map("FELARE"), system.as_torch(device),
+        queue_size=system.queue_size, max_steps=steps)
+    fleets = {"seven workload scenarios": profile_sim(
+        "FELARE fused_map paper, seven workload scenarios", sim, batch,
+        steps)}
+    for run in (SCENARIO_RUNS[0], SCENARIO_RUNS[2], SCENARIO_RUNS[4]):
+        spec = scenario_spec(run, reps, n_tasks)
+        system = spec.resolve_system()
+        traces = spec.resolve_scenario().stack(0, run[3], reps, n_tasks,
+                                               system.eet, device=device)
+        flat = type(traces)(*(x.reshape((-1,) + x.shape[2:])
+                              for x in traces))
+        disp = spec.dispatcher
+        sim = engine.make_simulator(
+            policy.with_fused_map(run[4]), system.as_torch(device),
+            queue_size=system.queue_size, max_steps=steps,
+            dispatcher=(dispatch.with_fused_balance(disp)
+                        if system.n_sites > 1 else None),
+            site_of_machine=system.site_of_machine)
+        fleets[run[0]] = profile_sim(f"{run[0]} fused_map {run[6]}", sim,
+                                     flat, steps)
+    emit("profile", run="scenarios", kernels_per_iteration=fleets)
+
 
 # --------------------------------------------------------------------------
 # Times
@@ -2264,9 +2573,17 @@ def map_path_inputs(path: str, device) -> dict:
     """Map-kernel inputs at the shape each path gives the kernels: the flat
     sweep's 150 replicates; paper_x8's block fold, 150 x 8 rows of its 4
     machines each with its own EET table; tiered_x4's masked fold, 2 rates
-    x 10 replicates x 4 sites, each row all 20 machines."""
+    x 10 replicates x 4 sites, each row all 20 machines; the cvb fleet's
+    150 replicates of 8 types on 6 machines; mixed_sites' masked fold, 150
+    x 2 rows of all 7 machines."""
     if path == "flat":
         return kernel_inputs(**MAIN_SHAPE, seed=5, device=device)
+    if path == "cvb":
+        return kernel_inputs(**FLEET_SHAPES["cvb"], seed=5, device=device)
+    if path == "mixed_sites":
+        return per_row_inputs(MIXED_ROWS["B"], MIXED_ROWS["N"],
+                              MIXED_ROWS["S"], MIXED_ROWS["sites"], seed=5,
+                              device=device, block=False)
     if path == "paper_x8":
         sites = tuple(f for f in range(BLOCK_ROWS["F"])
                       for _ in range(BLOCK_ROWS["m"]))
@@ -2297,10 +2614,11 @@ def timed_row(name, kern, plain, moved, ops, rate=None, iters=100,
 
 def time_kernels(device, errs: dict) -> list:
     """The scheduling kernels at the shapes the paths give them: map_decide
-    and evict_stats at the flat, paper_x8 and tiered_x4 shapes, phase1_map
-    at the flat one (only that path runs it), balance_scan at paper_x8's
-    and tiered_x4's. Each row's top-level numbers are those of its first
-    shape; ``by_shape`` holds every shape's."""
+    and evict_stats at the flat, paper_x8, tiered_x4, cvb (8 x 6) and
+    mixed_sites (4 x 7, masked fold) shapes, phase1_map at the flat, cvb
+    and mixed_sites ones (the paths that run it), balance_scan at
+    paper_x8's and tiered_x4's. Each row's top-level numbers are those of
+    its first shape; ``by_shape`` holds every shape's."""
     import torch
 
     from repro_torch.kernels import map_fused, phase1_map
@@ -2308,7 +2626,7 @@ def time_kernels(device, errs: dict) -> list:
     kinds = dict(nominator="min_energy_feasible", phase2_key="value",
                  drop_rule="stale_hopeless")          # FELARE's kinds
     by_shape = {"map_decide": {}, "evict_stats": {}, "phase1_map": {}}
-    for path in ("flat", "paper_x8", "tiered_x4"):
+    for path in ("flat", "paper_x8", "tiered_x4", "cvb", "mixed_sites"):
         x = map_path_inputs(path, device)
         B, N = x["deadline"].shape
         M = x["eet"].shape[-1]
@@ -2329,7 +2647,7 @@ def time_kernels(device, errs: dict) -> list:
                 nbytes(*es_args, *map_fused.evict_stats(*es_args)),
                 B * (3 * x["eet"].shape[-2] * M + 3 * N)),
         }
-        if path == "flat":
+        if path in ("flat", "cvb", "mixed_sites"):
             p1_args = phase1_args(x)
             table["phase1_map"] = (
                 lambda: phase1_map.phase1_map(*p1_args),
@@ -2584,13 +2902,15 @@ def time_model_kernels(device, errs: dict) -> list:
 
 
 # --------------------------------------------------------------------------
-# The sweep phases (9-19) in four processes at once
+# The sweep phases (9-20) in six processes at once
 # --------------------------------------------------------------------------
 # The sweeps are bound by the host's launches (85-93 % of the card idle),
-# so four processes can share the one card. Each group draws its traces
+# so six processes can share the one card. Each group draws its traces
 # from the same seed, zeroes the launch counts just before each run and
-# reads them just after, and returns them by path. Longest first.
-GROUPS = ("fed", "observe", "flat", "network")
+# reads them just after, and returns them by path. Longest first. Each
+# runs its CPU subsets on one thread: six processes share 8 cores, and
+# the subsets' threads slowed the others' launches.
+GROUPS = ("fed", "fleets", "scenarios", "observe", "flat", "network")
 
 
 def metrics_digest(result, heuristic: str) -> str:
@@ -2661,6 +2981,25 @@ def group_network(device, args) -> dict:
             "by_shape": {"tiered_x4": tier}}
 
 
+def group_scenarios(device, args) -> dict:
+    """Phase 20 on the paper's system and the flat synthetic fleets: the
+    workload scenarios, wide-fleet (cvb) and range."""
+    total = run_scenario_workloads(device, args.reps, args.tasks)
+    fleets, by_shape = run_scenario_fleets(device, args.reps, args.tasks,
+                                           ("cvb", "range"))
+    for k, v in fleets.items():
+        total[k] = total.get(k, 0) + v
+    return {"paths": {"scenarios": total}, "by_shape": by_shape}
+
+
+def group_fleets(device, args) -> dict:
+    """Phase 20 on the synthetic federations: mixed_sites and
+    federated-skew (paper_x2)."""
+    total, by_shape = run_scenario_fleets(device, args.reps, args.tasks,
+                                          ("mixed_sites", "paper_x2"))
+    return {"paths": {"scenarios": total}, "by_shape": by_shape}
+
+
 def run_group(args) -> int:
     """Run one group in this process (``--group``); its last line is
     ``{"group_result": ...}`` for the parent."""
@@ -2668,6 +3007,7 @@ def run_group(args) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
     require(torch.cuda.is_available(), "no CUDA device in a group process")
     out = globals()[f"group_{args.group}"](torch.device("cuda"), args)
     print(json.dumps({"group_result": out}), flush=True)
@@ -2741,7 +3081,7 @@ def main(argv=None) -> int:
                          "then stop without a result line")
     ap.add_argument("--group", choices=GROUPS,
                     help="run one group of the sweep phases (the script "
-                         "starts all four itself)")
+                         "starts them all itself)")
     args = ap.parse_args(argv)
     if args.group:
         return run_group(args)
@@ -2854,8 +3194,12 @@ def main(argv=None) -> int:
               "network phase runs tiered_x4 at 12 x 2000); the observed "
               "federation, the faulted sweeps and the fed CPU subset at "
               "700 tasks per trace (1000 before the network phases)")
+    emit("cut", scenario_parity_reps=SCENARIO_PARITY_REPS,
+         scenario_parity_tasks=SCENARIO_PARITY_TASKS,
+         note="the scenarios phase's plain-path parity at 5 replicates x "
+              "300 tasks; its sweeps run at full width")
     paths = {"flat": {}, "federated": {}, "serve": serve, "observed": {},
-             "faults": {}, "network": {}}
+             "faults": {}, "network": {}, "scenarios": {}}
     shape_counts = {}
     results = run_groups(args)
     # the flat FELARE sweep of phase 9 and the unobserved one of phase 13

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Count the PyTorch ops one batched iteration of the port's event loop
 dispatches, with and without engine observers, machine faults and a
-network, on the CPU.
+network, and on the workload scenarios and synthetic fleets, on the CPU.
 
     PYTHONPATH=src python scripts/torch_loop_ops.py
 
@@ -61,11 +61,12 @@ class _Count(TorchDispatchMode):
 
 
 def ops_per_iteration(system: str, select_fn, observers=(),
-                      dispatcher=None, dynamics=None, network=None) -> float:
+                      dispatcher=None, dynamics=None, network=None,
+                      scenario: str = "poisson") -> float:
     spec = scenarios.get_fleet(system).build()
     F = spec.n_sites
-    traces = scenarios.DEFAULT.stack(0, (2.0 * F, 8.0 * F), 2, 300,
-                                     spec.eet, device="cpu")
+    traces = scenarios.get(scenario).stack(0, (2.0 * F, 8.0 * F), 2, 300,
+                                           spec.eet, device="cpu")
     flat = type(traces)(*(x.reshape((-1,) + x.shape[2:]) for x in traces))
     counts = []
     for steps in (STEPS, 0):
@@ -135,6 +136,32 @@ def main() -> None:
     for label, select_fn, observers, dispatcher, net in networked:
         n = ops_per_iteration("tiered_x4", select_fn, observers, dispatcher,
                               network=net)
+        print(f"{label:62s} {n:8.2f}")
+    # chip_smoke.py's scenarios phase: the synthetic fleets' shapes
+    sticky_by_type = dispatch.Sticky(by_type=True)
+    fleets = (
+        ("paper FELARE, bursty", "paper", felare, None, "bursty"),
+        ("paper FELARE, bursty-heavy-tail", "paper", felare, None,
+         "bursty-heavy-tail"),
+        ("cvb FELARE (wide-fleet)", "cvb", felare, None, "wide-fleet"),
+        ("cvb ELARE on phase1_map (wide-fleet)", "cvb",
+         policy.with_fused_phase1("ELARE"), None, "wide-fleet"),
+        ("range FELARE", "range", felare, None, "poisson"),
+        ("mixed_sites FELARE + least_queued", "mixed_sites", felare,
+         dispatch.with_fused_balance("least_queued"), "poisson"),
+        ("mixed_sites FELARE + min_eet", "mixed_sites", felare, "min_eet",
+         "poisson"),
+        ("mixed_sites ELARE + least_queued on phase1_map", "mixed_sites",
+         policy.with_fused_phase1("ELARE"),
+         dispatch.with_fused_balance("least_queued"), "poisson"),
+        ("paper_x2 FELARE + sticky by type (federated-skew)", "paper_x2",
+         felare, sticky_by_type, "federated-skew"),
+        ("paper_x2 FELARE + fair_spill (federated-skew)", "paper_x2",
+         felare, fair_spill, "federated-skew"),
+    )
+    for label, system, select_fn, dispatcher, scenario in fleets:
+        n = ops_per_iteration(system, select_fn, (), dispatcher,
+                              scenario=scenario)
         print(f"{label:62s} {n:8.2f}")
 
 

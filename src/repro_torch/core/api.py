@@ -38,13 +38,16 @@ class StudyResult:
     """One (heuristic, arrival-rate) cell of a study.
 
     ``metrics`` holds per-replicate numpy arrays under the Metrics field
-    names: counts (K, S), energies and makespan (K,).
+    names: counts (K, S), energies and makespan (K,). ``aux`` holds the
+    attached observers' results for this cell (leaves leading with K),
+    or ``None`` when none was attached.
     """
 
     heuristic: str
     arrival_rate: float
     metrics: object
     p_dyn: np.ndarray = dataclasses.field(repr=False)
+    aux: object = dataclasses.field(default=None, repr=False)
 
     @property
     def completion_rate(self) -> float:
@@ -84,29 +87,50 @@ class StudyResult:
 
 def run_study(heuristic: str, arrival_rates, spec: SystemSpec, *,
               n_traces: int = 30, n_tasks: int = 2000, seed: int = 0,
-              cv_run: float = 0.1, use_fused_map: bool = False,
-              use_fused_phase1: bool = False, dispatcher="sticky",
-              network="none", device=None):
+              cv_run: float = 0.1, scenario="poisson", observers=(),
+              use_fused_map: bool = False, use_fused_phase1: bool = False,
+              dispatcher="sticky", dynamics="none", network="none",
+              device=None):
     """The paper's experiment template for one heuristic: ``n_traces``
-    replicate traces per rate under one seed, simulated as one batch on
-    ``device`` (``None`` = CUDA). A federated ``spec`` dispatches
-    through ``dispatcher``; ``network`` (a registered name or a
-    NetworkModel; ``"none"`` = free links) prices inter-site dispatch
-    over the spec's tiers. Returns one
+    replicate traces per rate under one seed (common random numbers
+    across rates), simulated as one batch on ``device`` (``None`` =
+    CUDA).
+
+    ``scenario`` is the workload (a registered name or a Scenario; the
+    paper's Poisson workload by default), ``observers`` the engine
+    observers to attach (names or Observer instances; their per-cell
+    results land on :attr:`StudyResult.aux`). A federated ``spec``
+    dispatches through ``dispatcher``; ``dynamics`` (a registered name or
+    a MachineDynamics; ``"none"`` = no faults) injects machine failures;
+    ``network`` (a registered name or a NetworkModel; ``"none"`` = free
+    links) prices inter-site dispatch over the spec's tiers. Returns one
     :class:`StudyResult` per rate, in ``arrival_rates`` order."""
     from repro_torch import experiments
 
     sweep_spec = experiments.SweepSpec(
-        system=spec, rates=tuple(float(r) for r in arrival_rates),
+        system=spec, scenario=scenario,
+        rates=tuple(float(r) for r in arrival_rates),
         reps=n_traces, n_tasks=n_tasks, heuristics=(heuristic,), seed=seed,
-        cv_run=cv_run, use_fused_map=use_fused_map,
-        use_fused_phase1=use_fused_phase1, dispatcher=dispatcher,
-        network=network,
+        cv_run=cv_run, observers=tuple(observers),
+        use_fused_map=use_fused_map, use_fused_phase1=use_fused_phase1,
+        dispatcher=dispatcher, dynamics=dynamics, network=network,
     )
     result = experiments.run_sweep(sweep_spec, device=device)
+
+    def cell_aux(r_i):
+        if not result.aux:
+            return None
+
+        def take(x):
+            if isinstance(x, dict):
+                return {k: take(v) for k, v in x.items()}
+            return x[0, r_i]
+
+        return take(result.aux)
+
     return [
         StudyResult(heuristic, float(rate),
                     result.metrics_for(heuristic, rate),
-                    p_dyn=np.asarray(spec.p_dyn))
-        for rate in sweep_spec.rates
+                    p_dyn=np.asarray(spec.p_dyn), aux=cell_aux(r_i))
+        for r_i, rate in enumerate(sweep_spec.rates)
     ]

@@ -3,9 +3,11 @@ sampling.
 
 Counterpart of ``repro/core/eet.py``: the paper's Table I, the Sec. VI-A
 power profiles and the AWS scenario tables, copied so that the port
-imports nothing of the JAX package. Randomness comes from a
-``numpy.random.Generator``; it cannot reproduce JAX's threefry streams,
-so sampling is held to the reference in distribution only.
+imports nothing of the JAX package, and the CVB synthesis of EET tables
+(:func:`cvb_eet`). Randomness comes from a ``numpy.random.Generator``; it
+cannot reproduce JAX's threefry streams, so sampling is held to the
+reference in distribution only (:func:`cvb_from_draws`, fed the
+reference's draws, gives its table).
 
 A table on the device is shared by a batch, (S, M), or given per row,
 (B, S, M), as the engine does for the federation's site views;
@@ -44,6 +46,31 @@ AWS_EET = np.array(
 )
 AWS_P_DYN = np.array([120.0, 300.0], dtype=np.float32)
 AWS_P_IDLE = np.array([6.0, 15.0], dtype=np.float32)
+
+
+def cvb_from_draws(g_task, g_mach, mean_task=3.0, cv_task=0.6,
+                   cv_mach=0.6) -> np.ndarray:
+    """The CVB transform of standard Gamma draws, in float32: ``g_task``
+    (S,) of shape ``1/cv_task^2`` gives the per-type baselines ``q_i =
+    g_task * mean_task cv_task^2``, and ``g_mach`` (S, M) of shape
+    ``1/cv_mach^2`` the rows ``g_mach * q_i cv_mach^2``."""
+    f32 = np.float32
+    q = np.asarray(g_task, f32) * f32(mean_task * cv_task**2)
+    return (np.asarray(g_mach, f32)
+            * (q[:, None] * f32(cv_mach**2))).astype(f32)
+
+
+def cvb_eet(rng: np.random.Generator, n_task_types, n_machines,
+            mean_task=3.0, cv_task=0.6, cv_mach=0.6) -> np.ndarray:
+    """Coefficient-of-Variation-Based EET synthesis [38]: a per-type
+    baseline q_i ~ Gamma with mean ``mean_task`` and CV ``cv_task``, then
+    row i drawn from a Gamma with mean q_i and CV ``cv_mach``. The CVs set
+    the task and machine heterogeneity. Returns (S, M) float32."""
+    f32 = np.float32
+    g_task = rng.standard_gamma(1.0 / cv_task**2, n_task_types, dtype=f32)
+    g_mach = rng.standard_gamma(1.0 / cv_mach**2, (n_task_types, n_machines),
+                                dtype=f32)
+    return cvb_from_draws(g_task, g_mach, mean_task, cv_task, cv_mach)
 
 
 def sample_actual_exec(rng: np.random.Generator, eet, task_type,

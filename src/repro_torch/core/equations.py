@@ -10,9 +10,17 @@ float32 reciprocal of the count (:func:`seq_mean`).
 
 Feasibility: a pair is feasible iff ``s + e <= delta`` (see the JAX
 module's note on Algorithm 2).
+
+Trace synthesis runs on the host in numpy; :func:`cumsum32` and
+:func:`exp32` give it the reference's compiled float32 prefix sum and
+exponential, so that its transforms of random draws round as the
+reference's do.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 F32 = torch.float32
@@ -61,6 +69,65 @@ def seq_sumsq(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return acc
 
 
+SCAN_BLOCK = 16  # block length of XLA's CPU prefix sum
+
+
+def cumsum32(x) -> np.ndarray:
+    """Inclusive float32 prefix sums along the last axis, in the order of
+    XLA's CPU scan (``jnp.cumsum``), which is not a left-to-right sum.
+
+    Up to :data:`SCAN_BLOCK` elements are summed left to right. A longer
+    axis is cut into blocks of 16 (the last one short): prefix sums left
+    to right within each block, the block totals scanned by the same rule,
+    and each block's exclusive carry added to its sums.
+    """
+    x = np.asarray(x, np.float32)
+    n = x.shape[-1]
+    if n <= SCAN_BLOCK:
+        return np.cumsum(x, axis=-1, dtype=np.float32)
+    nb = -(-n // SCAN_BLOCK)
+    pad = np.zeros(x.shape[:-1] + (nb * SCAN_BLOCK - n,), np.float32)
+    blocks = np.cumsum(np.concatenate([x, pad], -1).reshape(
+        x.shape[:-1] + (nb, SCAN_BLOCK)), axis=-1, dtype=np.float32)
+    carry = cumsum32(blocks[..., -1])
+    blocks[..., 1:, :] += carry[..., :-1, None]
+    return blocks.reshape(x.shape[:-1] + (nb * SCAN_BLOCK,))[..., :n]
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 ``a * b + c`` with one rounding (the product is exact in
+    float64)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def exp32(x) -> np.ndarray:
+    """float32 ``exp`` as XLA's CPU code computes it (not correctly
+    rounded): n = floor(x log2(e) + 1/2) clamped to [-127, 127], Cody-Waite
+    reduction r = x - n ln 2 in two fused multiply-adds, Cephes'
+    degree-5 polynomial evaluated with fused multiply-adds, times 2^n.
+    Inputs are clamped to [-87.8, 88.8]; results below 2^-126 flush to
+    zero."""
+    f32 = np.float32
+    x = np.clip(np.asarray(x, f32), f32(-87.8), f32(88.8))
+    n = np.clip(np.floor(_fma32(x, f32(1.44269504088896341), f32(0.5))),
+                -127, 127).astype(f32)
+    r = _fma32(n, f32(-0.693359375), x)
+    r = _fma32(n, f32(2.12194440e-4), r)
+    z = _fma32(r, f32(_EXP_POLY[0]), f32(_EXP_POLY[1]))
+    for c in _EXP_POLY[2:]:
+        z = _fma32(z, r, f32(c))
+    z = (f32(1) + _fma32(z, r * r, r)).astype(f32)
+    pow2 = ((n.astype(np.int32) + 127) << 23).view(f32)
+    with np.errstate(over="ignore"):
+        y = (z * pow2).astype(f32)
+    return np.where(y < np.finfo(f32).tiny, f32(0), y)
+
+
 def exact_sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root on every device (float64
     sqrt then one rounding; PyTorch's vectorized CPU float32 sqrt is not
@@ -94,16 +161,25 @@ def fairness_limit(completion_rates, fairness_factor):
     """Eq. 3 — epsilon = mu - f * sigma over per-type completion rates.
 
     sigma is the population standard deviation (ddof 0), clamped at 0.
-    Reduces over the last axis. Bit-exact with the reference for a
-    power-of-two type count (the paper and AWS systems); for other counts
-    the reference's compiler contracts the centring into fused
-    multiply-adds, and sigma may differ in its last place.
+    Reduces over the last axis. Bit-exact with the reference's compiled
+    form at any type count up to 16 (checked over random rates for 2 to
+    16 types; ``range`` has 6): mu and the sum of squares left to right,
+    each square fused into the accumulation, times the float32 reciprocal
+    of the count. ``mu - f * sigma`` rounds once, as the reference's
+    compiled code contracts it into a fused multiply-add; two roundings
+    differ in the last place for an ``f`` such as 0.7, and agree when
+    ``f`` is a power of two (the paper's 1), whose product is exact.
     """
     cr = completion_rates.to(F32)
     mu = seq_mean(cr)
     centered = cr - mu[..., None]
     sigma = exact_sqrt(seq_sumsq(centered) * (1.0 / cr.shape[-1]))
-    return torch.clamp(mu - fairness_factor * sigma, min=0.0)
+    f = float(np.float32(fairness_factor))
+    if math.frexp(f)[0] == 0.5:
+        eps = mu - f * sigma
+    else:
+        eps = (mu.double() - f * sigma.double()).to(F32)
+    return torch.clamp(eps, min=0.0)
 
 
 def deadlines(arrival, task_type, eet):

@@ -76,6 +76,10 @@ class SystemSpec:
                 raise ValueError(f"tiers must be >= 0, got {tiers}")
 
     @property
+    def n_task_types(self) -> int:
+        return np.shape(self.eet)[0]
+
+    @property
     def n_machines(self) -> int:
         return np.shape(self.eet)[1]
 

@@ -6,12 +6,17 @@ from repro_torch.core.types import Trace
 
 
 def poisson_trace(seed, n_tasks, arrival_rate, eet, *, n_task_types=None,
-                  cv_run=0.1, device=None) -> Trace:
+                  cv_run=0.1, type_probs=None, device=None) -> Trace:
     """One trace under the paper's default scenario: Exp(rate)
-    inter-arrivals, uniform types, Eq. 4 deadlines, Gamma runtimes.
-    ``seed`` is an int or a ``numpy.random.SeedSequence``."""
+    inter-arrivals, uniform types (or per ``type_probs``, a
+    ``WeightedMix``), Eq. 4 deadlines, Gamma runtimes. ``seed`` is an int
+    or a ``numpy.random.SeedSequence``."""
     from repro_torch import scenarios
 
-    return scenarios.DEFAULT.sample_trace(
+    scenario = scenarios.DEFAULT
+    if type_probs is not None:
+        scenario = scenarios.replace(
+            scenario, mix=scenarios.mix_from_probs(tuple(type_probs)))
+    return scenario.sample_trace(
         seed, n_tasks, arrival_rate, eet, cv_run=cv_run,
         n_task_types=n_task_types, device=device)

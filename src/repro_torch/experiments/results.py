@@ -50,8 +50,8 @@ class SweepResult:
     and makespan (H, R, K). ``aux`` maps each attached observer's name to
     its result, every leaf a numpy array leading with (H, R, K); ``{}``
     when none was attached. ``device`` names where the sweep ran, and
-    ``run_info`` holds per heuristic the wall seconds and the batched
-    loop iterations.
+    ``run_info`` holds per heuristic the wall seconds, the batched
+    loop iterations and the scenario's label.
     """
 
     spec: object

@@ -27,7 +27,8 @@ def simulate_sweep(traces: Trace, system: SystemSpec, heuristic_names, *,
                    dispatcher=None, dynamics=None, network=None,
                    use_fused_phase1: bool = False,
                    use_fused_map: bool = False, max_steps=None, device=None,
-                   observers=(), run_info: dict | None = None):
+                   observers=(), run_info: dict | None = None,
+                   trace_label: str = ""):
     """Simulate a flat batch of traces (leaves (B, N), (B, N, M)) under
     every heuristic, on ``device`` (``None`` = CUDA). A federated
     ``system`` dispatches through ``dispatcher`` (``None`` = ``sticky``);
@@ -40,8 +41,9 @@ def simulate_sweep(traces: Trace, system: SystemSpec, heuristic_names, *,
     Returns Metrics as numpy arrays with leaves (H, B, ...), or
     ``(Metrics, aux)`` with ``observers`` attached, every aux leaf a
     numpy array (H, B, ...). When ``run_info`` is a dict, it receives
-    per heuristic the wall seconds and the number of batched loop
-    iterations.
+    per heuristic the wall seconds, the number of batched loop
+    iterations and ``trace_label`` (``run_sweep`` passes the scenario's
+    name).
     """
     dev = resolve_device(device)
     per_h = []
@@ -58,6 +60,7 @@ def simulate_sweep(traces: Trace, system: SystemSpec, heuristic_names, *,
             run_info[name] = {
                 "seconds": time.perf_counter() - t0,
                 "loop_iterations": engine.COUNTS["loop_iterations"] - it0,
+                "scenario": trace_label,
             }
     return observe.tree_map(lambda *xs: np.stack(xs), *per_h)
 
@@ -66,7 +69,8 @@ def run_sweep(spec: SweepSpec, *, traces: Trace | None = None,
               device=None) -> SweepResult:
     """Execute a full batched sweep on ``device`` (``None`` = CUDA).
 
-    Builds the (rates x reps) trace stack from ``spec.seed`` — or takes
+    Builds the (rates x reps) trace stack of the spec's scenario from
+    ``spec.seed``, with the resolved system's task types — or takes
     ``traces``, any stack whose leaves lead with (R, K) (numpy arrays or
     tensors, e.g. the reference's own ``trace_stack``) — simulates it
     under every heuristic and wraps the per-trace Metrics and the
@@ -79,7 +83,8 @@ def run_sweep(spec: SweepSpec, *, traces: Trace | None = None,
     if traces is None:
         traces = spec.resolve_scenario().stack(
             spec.seed, spec.rates, spec.reps, spec.n_tasks, system.eet,
-            cv_run=spec.cv_run, device=dev)
+            cv_run=spec.cv_run, n_task_types=system.n_task_types,
+            device=dev)
     flat = Trace(*(_as_tensor(x).reshape((R * K,) + tuple(x.shape[2:]))
                    for x in traces))
     run_info: dict = {}
@@ -89,7 +94,9 @@ def run_sweep(spec: SweepSpec, *, traces: Trace | None = None,
         dynamics=spec.resolve_dynamics(), network=spec.resolve_network(),
         use_fused_phase1=spec.use_fused_phase1,
         use_fused_map=spec.use_fused_map, max_steps=spec.max_steps,
-        device=dev, observers=observers, run_info=run_info)
+        device=dev, observers=observers, run_info=run_info,
+        trace_label=(spec.scenario if isinstance(spec.scenario, str)
+                     else "<custom scenario>"))
     metrics, aux = out if observers else (out, {})
     H = len(spec.heuristics)
     metrics, aux = observe.tree_map(

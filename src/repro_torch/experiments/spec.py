@@ -1,14 +1,14 @@
 """Sweep configuration (counterpart of ``repro/experiments/spec.py``).
 
 A :class:`SweepSpec` fixes a batched Monte-Carlo experiment — system,
-arrival rates, replicates, heuristics, seed, dispatcher, machine
-dynamics, network — so a sweep is reproducible from its spec alone.
-Heuristic names resolve through :mod:`repro_torch.core.policy`,
-dispatcher names through :mod:`repro_torch.core.dispatch`, dynamics
-names through :mod:`repro_torch.core.faults`, network names through
+scenario, arrival rates, replicates, heuristics, seed, dispatcher,
+machine dynamics, network — so a sweep is reproducible from its spec
+alone. Heuristic names resolve through :mod:`repro_torch.core.policy`,
+scenario names through :mod:`repro_torch.scenarios`, dispatcher names
+through :mod:`repro_torch.core.dispatch`, dynamics names through
+:mod:`repro_torch.core.faults`, network names through
 :mod:`repro_torch.core.network`, system names through the fleet
-registry (``"paper"``, ``"aws"``, ``"paper_x8"``, ...). Only the
-``"poisson"`` scenario is ported.
+registry (``"paper"``, ``"cvb"``, ``"mixed_sites"``, ``"paper_x8"``, ...).
 """
 from __future__ import annotations
 
@@ -50,7 +50,10 @@ def parse_rates(text: str) -> tuple[float, ...]:
 class SweepSpec:
     """A batched Monte-Carlo sweep over (rates x replicates x heuristics).
 
-    Attributes mirror the JAX ``SweepSpec``; ``use_fused_phase1`` and
+    Attributes mirror the JAX ``SweepSpec``. ``system`` is a registered
+    fleet name, a SystemSpec, or ``None`` for the scenario's own fleet
+    (``"paper"`` when it has none); ``scenario`` is a registered name or a
+    :class:`repro_torch.scenarios.Scenario`. ``use_fused_phase1`` and
     ``use_fused_map`` are the counterparts of ``use_pallas_phase1`` and
     ``use_pallas_map`` (both off by default): they route ELARE's Phase I,
     or the whole map decision and the dispatcher's balance walk, through
@@ -84,7 +87,7 @@ class SweepSpec:
     use_fused_phase1: bool = False
     use_fused_map: bool = False
     max_steps: Optional[int] = None
-    scenario: str = "poisson"
+    scenario: Union[str, object] = "poisson"  # name or scenarios.Scenario
     dispatcher: Union[str, object] = "sticky"
     observers: tuple = ()
     dynamics: Union[str, object] = "none"
@@ -110,9 +113,16 @@ class SweepSpec:
         if unknown:
             raise ValueError(f"unknown heuristics {unknown}; choose from "
                              f"{policy.list_policies()}")
-        if not scenarios.is_registered(self.scenario):
-            raise ValueError(f"unknown scenario {self.scenario!r}; choose "
-                             f"from {scenarios.list_scenarios()}")
+        if isinstance(self.scenario, str):
+            if not scenarios.is_registered(self.scenario):
+                raise ValueError(
+                    f"unknown scenario {self.scenario!r}; "
+                    f"choose from {scenarios.list_scenarios()} "
+                    f"(or scenarios.register(...) your own)")
+        elif not isinstance(self.scenario, scenarios.Scenario):
+            raise ValueError(
+                f"scenario must be a registered name or a "
+                f"scenarios.Scenario, got {self.scenario!r}")
         from repro_torch.core import dispatch
 
         if isinstance(self.dispatcher, str):
@@ -200,20 +210,29 @@ class SweepSpec:
         return network.resolve(self.network)
 
     def resolve_scenario(self):
+        """Materialize the :class:`repro_torch.scenarios.Scenario`."""
         from repro_torch import scenarios
 
-        return scenarios.get(self.scenario)
+        if isinstance(self.scenario, scenarios.Scenario):
+            return self.scenario
+        return scenarios.get(str(self.scenario))
 
     def resolve_system(self) -> SystemSpec:
-        """The SystemSpec, with the queue-size / fairness overrides."""
+        """The SystemSpec, with the queue-size / fairness overrides. An
+        explicit SystemSpec or fleet name wins; ``system=None`` takes the
+        scenario's own fleet, or the paper system when it has none."""
         from repro_torch import scenarios
 
         if isinstance(self.system, SystemSpec):
             sys_spec = self.system
+        elif self.system is None:
+            fleet = self.resolve_scenario().fleet
+            if fleet is None:
+                fleet = scenarios.get_fleet("paper")
+            sys_spec = fleet.build()
         else:
-            name = "paper" if self.system is None else str(self.system)
             try:
-                sys_spec = scenarios.get_fleet(name).build()
+                sys_spec = scenarios.get_fleet(str(self.system)).build()
             except KeyError:
                 raise ValueError(f"unknown system {self.system!r}; choose "
                                  f"from {scenarios.list_fleets()} or pass a "
@@ -243,6 +262,8 @@ class SweepSpec:
                 "site_of_machine": self.system.site_of_machine,
                 "tier_of_site": self.system.tier_of_site,
             }
+        if not isinstance(self.scenario, str):
+            d["scenario"] = self.scenario.to_json_dict()
         if not isinstance(self.dispatcher, str):
             d["dispatcher"] = dispatch.to_json_dict(self.dispatcher)
         if not isinstance(self.dynamics, str):
@@ -269,6 +290,7 @@ class SweepSpec:
         """Rebuild a spec from :meth:`to_json_dict` output (the ``"spec"``
         block of a saved ``sweep.json``). A payload without a network
         (written before the network existed) loads with ``"none"``."""
+        from repro_torch import scenarios
         from repro_torch.core import dispatch, faults, network, observe
 
         d = dict(d)
@@ -290,6 +312,9 @@ class SweepSpec:
         dynamics = d.get("dynamics", "none")
         if isinstance(dynamics, dict):
             dynamics = faults.from_json_dict(dynamics)
+        scenario = d.get("scenario", "poisson")
+        if isinstance(scenario, dict):
+            scenario = scenarios.Scenario.from_json_dict(scenario)
         net = d.get("network", "none")
         if isinstance(net, dict):
             net = network.from_json_dict(net)
@@ -306,7 +331,7 @@ class SweepSpec:
             use_fused_phase1=bool(d.get("use_fused_phase1", False)),
             use_fused_map=bool(d.get("use_fused_map", False)),
             max_steps=d.get("max_steps"),
-            scenario=d.get("scenario", "poisson"),
+            scenario=scenario,
             dispatcher=dispatcher,
             observers=tuple(observe.from_json_dict(ob)
                             if isinstance(ob, dict) else ob

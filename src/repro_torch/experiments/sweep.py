@@ -1,12 +1,17 @@
 """One-command batched Monte-Carlo sweep CLI on the port.
 
     PYTHONPATH=src python -m repro_torch.experiments.sweep \
-        --system paper --rates 2,3,4,6,8 --reps 8 --tasks 400 \
-        --heuristics MM,MSD,MMU,ELARE,FELARE --out artifacts/sweep_torch
+        --system paper --scenario bursty --rates 2,3,4,6,8 --reps 8 \
+        --tasks 400 --heuristics MM,MSD,MMU,ELARE,FELARE \
+        --out artifacts/sweep_torch
 
 Runs on the CUDA device unless ``--device cpu`` is given. Rates accept a
 comma list (``2,3,4.5``) or an inclusive ``start:stop:step`` range.
-``--fused-map`` runs the whole map decision (and a federation's balance
+``--scenario`` picks a registered workload scenario
+(``--list-scenarios`` prints each one's arrival x mix x deadline x
+runtime x fleet composition); ``--system`` defaults to the scenario's own
+fleet, or ``paper``. ``--fused-map`` runs the whole map decision (and a
+federation's balance
 walk) through the ``map_fused`` kernels, ``--fused-phase1`` ELARE's
 Phase I through ``phase1_map``. ``--dispatcher`` picks a federation's
 site-selection rule (``--list-dispatchers``). ``--dynamics`` injects a
@@ -45,9 +50,13 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
                     "(arrival rates x replicates x heuristics), on the "
                     "PyTorch/CUDA port.",
     )
-    ap.add_argument("--system", default="paper",
+    ap.add_argument("--system", default=None,
                     help="registered fleet: " + ", ".join(
-                        scenarios.list_fleets()) + " (default: paper)")
+                        scenarios.list_fleets()) + " (default: the "
+                        "scenario's own fleet, or paper)")
+    ap.add_argument("--scenario", default="poisson",
+                    help="workload scenario name (default: poisson; see "
+                         "--list-scenarios)")
     ap.add_argument("--rates", default=None,
                     help="comma list '2,3,4' or inclusive range "
                          "'start:stop:step' (default: "
@@ -61,6 +70,9 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
                          + ",".join(DEFAULT_HEURISTICS) + "; see --list)")
     ap.add_argument("--list", action="store_true",
                     help="list the registered scheduling policies and exit")
+    ap.add_argument("--list-scenarios", action="store_true",
+                    help="list the registered workload scenarios and fleet "
+                         "builders, then exit")
     ap.add_argument("--dispatcher", default="sticky",
                     help="federation site-selection rule for multi-site "
                          "systems (default: sticky; see --list-dispatchers)."
@@ -113,6 +125,9 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
     if args.list:
         print_policy_list()
         raise SystemExit(0)
+    if args.list_scenarios:
+        print_scenario_list()
+        raise SystemExit(0)
     if args.list_dispatchers:
         print_dispatcher_list()
         raise SystemExit(0)
@@ -136,7 +151,12 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
         ap.error(f"unknown heuristics {unknown}; registered policies: "
                  + ", ".join(policy.list_policies())
                  + " (run with --list for details)")
-    if not scenarios.is_registered_fleet(args.system):
+    if not scenarios.is_registered(args.scenario):
+        ap.error(f"unknown scenario {args.scenario!r}; registered scenarios: "
+                 + ", ".join(scenarios.list_scenarios())
+                 + " (run with --list-scenarios for details)")
+    if args.system is not None and not scenarios.is_registered_fleet(
+            args.system):
         ap.error(f"unknown system {args.system!r}; registered fleets: "
                  + ", ".join(scenarios.list_fleets()))
     if not dispatch.is_registered(args.dispatcher):
@@ -162,6 +182,7 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
         rates = parse_rates(args.rates) if args.rates else DEFAULT_RATES
         spec = SweepSpec(
             system=args.system,
+            scenario=args.scenario,
             rates=rates,
             reps=args.reps,
             n_tasks=args.tasks,
@@ -193,6 +214,20 @@ def print_policy_list(file=None) -> None:
         print(f"{name:10s} {d.nominator:20s} {d.phase2_key:12s} "
               f"{d.drop_rule:15s} {'yes' if d.fairness else 'no':8s}",
               file=file)
+
+
+def print_scenario_list(file=None) -> None:
+    """One line per registered scenario: name + component composition,
+    then the registered fleet builders."""
+    file = file if file is not None else sys.stdout
+    print(f"{'scenario':18s} {'arrivals':12s} {'mix':10s} "
+          f"{'deadline':10s} {'runtime':11s} {'fleet':8s}", file=file)
+    for name in scenarios.list_scenarios():
+        d = scenarios.get(name).describe()
+        print(f"{name:18s} {d['arrivals']:12s} {d['mix']:10s} "
+              f"{d['deadline']:10s} {d['runtime']:11s} {d['fleet']:8s}",
+              file=file)
+    print(f"\nfleets: {', '.join(scenarios.list_fleets())}", file=file)
 
 
 def print_dispatcher_list(file=None) -> None:
@@ -257,6 +292,9 @@ def print_summary(result: SweepResult, file=None) -> None:
 def main(argv=None) -> SweepResult:
     spec, args = build_spec(argv)
     n = spec.n_simulations
+    system_label = args.system or (
+        "scenario fleet" if spec.resolve_scenario().fleet is not None
+        else "paper")
     n_sites = spec.resolve_system().n_sites
     fed = (f" sites={n_sites} dispatcher={spec.dispatcher}"
            if n_sites > 1 else "")
@@ -266,8 +304,9 @@ def main(argv=None) -> SweepResult:
         fed += f" network={spec.network}"
     print(f"sweep: {len(spec.heuristics)} heuristics x "
           f"{len(spec.rates)} rates x {spec.reps} reps "
-          f"({n} traces of {spec.n_tasks} tasks) on system={args.system}"
-          f"{fed} device={args.device}", flush=True)
+          f"({n} traces of {spec.n_tasks} tasks) on system={system_label}"
+          f" scenario={args.scenario}{fed} device={args.device}",
+          flush=True)
     t0 = time.perf_counter()
     result = run_sweep(spec, device=args.device)
     dt = time.perf_counter() - t0

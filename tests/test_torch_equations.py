@@ -1,5 +1,6 @@
 """The port's Eqs. 1-4, Eq. 3 fairness limit and suffered-type mask against
 ``repro.core.equations`` / ``repro.core.fairness``, bit for bit."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -83,12 +84,12 @@ def _rates(seed, n=400, S=4):
 @pytest.mark.parametrize("f", [1.0, 0.5, 1.5, 4.0])
 @pytest.mark.parametrize("S", [2, 4, 8])
 def test_fairness_limit_eq3(f, S):
-    """Exact for power-of-two type counts (the paper's 4 types, AWS's 2):
-    there the reference's 1/S scalings are exact and only its fused
-    sum of squares needs reproducing."""
+    """Exact against the reference's compiled form, as its engine
+    evaluates Eq. 3 (jitted, batched): its fused sum of squares and its
+    fused ``mu - f * sigma`` reproduced."""
     cr = _rates(S, S=S)
-    ref = np.array([float(jeq.fairness_limit(jnp.asarray(c), f))
-                    for c in cr], np.float32)
+    ref = np.asarray(jax.jit(jax.vmap(
+        lambda c: jeq.fairness_limit(c, f)))(jnp.asarray(cr)))
     got = to_np(teq.fairness_limit(torch.from_numpy(cr), f))
     np.testing.assert_array_equal(got, ref)
 

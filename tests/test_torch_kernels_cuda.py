@@ -778,3 +778,134 @@ def test_networked_fused_run_matches_networked_plain_run_on_card(
                 (dispatcher, name, leaf)
     if dispatcher == "fair_spill":  # hash homes: links are paid
         assert bool((aux_k["task_log"]["ready_time"] > flat.arrival).any())
+
+
+# --------------------------------------------------------------------------
+# The shapes of the synthetic fleets: cvb and wide-fleet (8 types on 6
+# machines), range (6 on 6), mixed_sites (7 machines in sites of 4 and 3,
+# the masked fold), federated-skew (paper_x2 under a skewed mix).
+# --------------------------------------------------------------------------
+MIXED_SITES = (0, 0, 0, 0, 1, 1, 1)
+
+
+def assert_map_kernels_match_plain(t, what):
+    """map_decide over every nominator x key x drop rule with the suffered
+    split on and off, evict_stats, and phase1_map over the gathered rows,
+    each bit for bit with its plain version."""
+    md = (t["now"], t["start"], t["p_dyn"], t["qfree"], t["eet"],
+          t["deadline"], t["pending"], t["task_type"])
+    for nom, key, drop in ALL_KINDS:
+        kw = dict(nominator=nom, phase2_key=key, drop_rule=drop)
+        for suffered in (t["suffered"], torch.zeros_like(t["suffered"])):
+            got = map_fused.map_decide(*md, suffered, **kw)
+            torch.cuda.synchronize()
+            want = map_fused.map_decide_plain(*md, suffered, **kw)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (what, kw)
+    es = (t["start"], t["qfree"], t["eet"], t["deadline"], t["pending"],
+          t["task_type"])
+    for g, w in zip(map_fused.evict_stats(*es),
+                    map_fused.evict_stats_plain(*es)):
+        assert torch.equal(g, w), what
+    from repro_torch.core.eet import type_rows
+
+    p1 = (t["start"], type_rows(t["eet"], t["task_type"].long()).contiguous(),
+          t["deadline"], t["p_dyn"], t["pending"], t["qfree"])
+    for g, w in zip(phase1_map.phase1_map(*p1),
+                    phase1_map.phase1_map_plain(*p1)):
+        assert torch.equal(g, w), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,M", [(8, 6), (6, 6)], ids=["cvb", "range"])
+def test_map_kernels_at_synthetic_fleet_shapes_on_card(S, M):
+    """The map kernels at S x M = 8 x 6 and 6 x 6 (map_decide's instance
+    for up to 8 machines with the columns past M masked), on the sweep's
+    150 x 2000 rows."""
+    needs_card()
+    x = kernel_inputs(150, 2000, M, S, seed=S)
+    t = {k: torch.as_tensor(v, device="cuda") for k, v in x.items()}
+    assert_map_kernels_match_plain(t, (S, M))
+
+
+@pytest.mark.cuda
+def test_map_kernels_on_the_mixed_sites_fold_on_card():
+    """The masked fold of mixed_sites: a row per (replicate, site) holding
+    all 7 machines, the other site's EET columns at BIG (4 of them for
+    site 1, 3 for site 0)."""
+    needs_card()
+    from repro_torch.core.equations import BIG
+
+    B, N, S = 150, 2000, 4
+    sites = np.asarray(MIXED_SITES)
+    x = kernel_inputs(2 * B, N, sites.size, S, seed=7)
+    r = np.random.default_rng(7)
+    eet = np.round(r.uniform(0.5, 5.0, (2, S, sites.size)) * 8) / 8
+    eet = np.where(sites[None, None, :] == np.arange(2)[:, None, None],
+                   eet, BIG)
+    x["eet"] = np.tile(eet, (B, 1, 1)).astype(np.float32)
+    t = {k: torch.as_tensor(v, device="cuda") for k, v in x.items()}
+    assert_map_kernels_match_plain(t, "mixed_sites")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.01, 0.5, 1.0])
+def test_balance_scan_over_unequal_sites_on_card(density):
+    """The balance walk over two sites of 4 and 3 machines (queue 2: loads
+    up to 12 and 9), with and without a dead site, at the sweep's shape."""
+    needs_card()
+    r = np.random.default_rng(int(100 * density))
+    B, N = 150, 2000
+    load0 = np.stack([r.integers(0, 13, B), r.integers(0, 10, B)], 1)
+    load0[: B // 4, 1] += 1_000_000
+    args = [torch.as_tensor(a, device="cuda") for a in (
+        load0.astype(np.int64), r.random((B, N)) < density,
+        r.random((B, N)) < 0.5, r.integers(0, 2, (B, N)).astype(np.int64))]
+    got = map_fused.balance_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, map_fused.balance_scan_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario,system,heuristic,dispatcher", [
+    ("wide-fleet", None, "FELARE", None),
+    ("wide-fleet", None, "ELARE", None),
+    ("heavy-tail", "range", "FELARE", None),
+    ("flash-crowd", "mixed_sites", "FELARE", "least_queued"),
+    ("flash-crowd", "mixed_sites", "FELARE", "min_eet"),
+    ("federated-skew", None, "FELARE", "sticky_by_type"),
+    ("federated-skew", None, "FELARE", "fair_spill"),
+])
+def test_scenario_fleet_fused_run_matches_plain_run_on_card(
+        scenario, system, heuristic, dispatcher):
+    """A scenario sweep on its fleet through the kernels equals the plain
+    path on the card, every Metrics field bit for bit, and launched every
+    kernel of its path."""
+    needs_card()
+    from repro_torch import scenarios
+    from repro_torch.core import dispatch, engine
+
+    scn = scenarios.get(scenario)
+    spec = (scenarios.get_fleet(system) if system else scn.fleet).build()
+    traces = scn.stack(0, (2.0, 4.0 * spec.n_sites), 3, 300, spec.eet,
+                       device="cuda")
+    flat = type(traces)(*(x.reshape((-1,) + x.shape[2:]) for x in traces))
+    disp = (dispatch.Sticky(by_type=True) if dispatcher == "sticky_by_type"
+            else dispatcher)
+    mf.LAUNCHES.update({k: 0 for k in mf.LAUNCHES})
+    phase1_map.LAUNCHES["phase1_map"] = 0
+    fused = engine.simulate_batch(flat, spec, heuristic, dispatcher=disp,
+                                  use_fused_map=heuristic == "FELARE",
+                                  use_fused_phase1=heuristic == "ELARE",
+                                  device="cuda")
+    if heuristic == "ELARE":
+        assert phase1_map.LAUNCHES["phase1_map"] > 0
+    else:
+        assert mf.LAUNCHES["map_decide"] > 0
+        assert mf.LAUNCHES["evict_stats"] > 0
+    if dispatcher in ("least_queued", "fair_spill"):
+        assert mf.LAUNCHES["balance_scan"] > 0
+    plain = engine.simulate_batch(flat, spec, heuristic, dispatcher=disp,
+                                  device="cuda")
+    for a, b, f in zip(fused, plain, fused._fields):
+        assert torch.equal(a, b), (scenario, f)

@@ -763,7 +763,7 @@ def test_cli_list_fleets(capsys):
         tsweep.build_spec(["--list-fleets"])
     assert e.value.code == 0
     out = capsys.readouterr().out.splitlines()
-    assert len(out) == 1 + 8
+    assert len(out) == 1 + 11
     names = [line.split()[0] for line in out[1:]]
     assert names == scenarios.list_fleets()
     row = {line.split()[0]: line.split() for line in out[1:]}
