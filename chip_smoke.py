@@ -39,7 +39,8 @@ launch counts, and their lines arrive interleaved:
               (range) tables, and in their per-row EET form at the
               federation's block-fold and masked-fold shapes and at
               mixed_sites' fold of 7 machines in sites of 4 and 3
-              (phase1_map too; task types int32);
+              (phase1_map too; task types int32), and at the router's
+              one event (B = 1) over N = 1, 2, 3, 5, 8, 13 and 21 tasks;
               evict_stats also with row 0 without a free machine and
               deadlines at start + e and at +inf, at the flat, block-fold
               and masked-fold shapes; ``balance_scan`` at the federated
@@ -55,7 +56,10 @@ launch counts, and their lines arrive interleaved:
               cases), at head dims 24, 40 and 256, one query row, a batch
               row with no valid key, decode with kv_len at the boundaries
               of its split of the cache over 8 blocks (GQA 8, caches of
-              1088 and 4096), and at the serve path's full-width shapes:
+              1088 and 4096), and at the serve paths' full-width shapes
+              (zamba2-2.7b's, and the dense configs' g = 2, 3 and 8 at
+              head dim 128; decode at g = 3 on the 4-head instance with
+              one head masked):
               attention within atol 1e-5 in float32, the SSD scan within
               2e-4, anything in bfloat16 within 2e-2 (sums in another
               order, p rounded to bf16 for the tensor cores); bf16
@@ -80,13 +84,18 @@ launch counts, and their lines arrive interleaved:
               (timed here, never called by the port), each kernel's share
               of its bound and its ratio to that call. map_decide and
               evict_stats at the flat, paper_x8, tiered_x4, cvb (8 x 6)
-              and mixed_sites (masked fold of 7) shapes, phase1_map at the
-              flat, cvb and mixed_sites ones, balance_scan at paper_x8's
+              and mixed_sites (masked fold of 7) shapes, phase1_map at
+              the flat, cvb and mixed_sites ones, balance_scan at paper_x8's
               and tiered_x4's, the SSD scan with bf16 B and C
               as the serve path gives them (and with float32 B and C);
               then flash attention's float32 instantiation at the same
               shape, and decode attention with 2, 4 and 8 query heads per
-              kv head;
+              kv head; then, in a process of its own
+              (``--serving-front-times``: torch.profiler loses records
+              once a process has opened many windows), the map kernels
+              at the router's shape (one event of 8 tasks) and flash and
+              decode attention at the dense configs' serve shapes (g = 2,
+              3, 8 at head dim 128);
   6. profile  where one batched event's time goes (the device's records
               alone): the first 64
               iterations of the flat FELARE and phase1 ELARE sweeps, of
@@ -121,6 +130,29 @@ launch counts, and their lines arrive interleaved:
               tokens reported (on the requests whose top-2 gap on the
               plain path is above 2e-2 x max|logits|, and against the
               float32 run);
+  8a. serve_dense  the dense GQA configs at their published width, bf16,
+              random weights from torch.Generator seed 0, each serving 8
+              requests of 1024 prompt tokens for 64 greedy tokens as in
+              phase 7: internlm2-1.8b (24 layers, 16/8 heads) and
+              phi4-mini-3.8b (32 layers, 24/8 heads) at full depth,
+              command-r-35b (64/8 heads) at 16 of its 40 layers (the line
+              names the cut). Launches, zeroed just before: one
+              flash_attention per layer and one decode_attention per
+              layer and step; finite logits, tokens in range. Prefill
+              ms, ms per decode step, tokens/s, peak memory, then where
+              one prefill and one decode step spend their device time;
+  8b. router  launch/serve.py's request loop on the card (400 requests at
+              1000/s over its four archs and four machine groups) under
+              plain FELARE and ELARE and under with_fused_map(FELARE),
+              with_fused_map(ELARE) and with_fused_phase1(ELARE),
+              registered by name: every metrics() field equal to the
+              plain run's on the card and to the same name's run on the
+              CPU; launches equal to the policy calls (FELARE on the map
+              kernels: one evict_stats and one map_decide each); host ms
+              per mapping event;
+  8c. elastic launch/elastic.py at its defaults on the card and on the
+              CPU: the same printout and result, and a site left (in the
+              flat sweep's group process, after phase 10);
   9. main     the flat paper-scale sweep (paper 4x4 system, rates 2-8, 30
               replicates of 2000 tasks) with ELARE, FELARE and MM on the
               fused map kernels and ELARE on the phase1_map kernel; the
@@ -398,6 +430,24 @@ KERNEL_SOURCES = {
 SERVE_ARCH = "zamba2-2.7b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 1024, 64
 SERVE_MAX_SEQ = SERVE_PROMPT + SERVE_NEW
+# The dense GQA configs served at their published width, each 8 requests
+# of 1024 prompt tokens for 64 greedy tokens like zamba2-2.7b: 16 query
+# heads per 8 kv heads (g = 2), 24 (g = 3) and 64 (g = 8), head dim 128.
+# command-r-35b's depth is cut to 16 of its 40 layers (13.4 B parameters,
+# 27 GB in bf16; at full depth its 61 GB of weights and the float32
+# temporaries of their init do not fit the card's 80 GB).
+DENSE_SERVE = (("internlm2-1.8b", None), ("phi4-mini-3.8b", None),
+               ("command-r-35b", 16))
+# The serving front: launch/serve.py's stream (its default fleet of four
+# machine groups and four archs) at 400 requests and 1000 requests/s,
+# routed by plain FELARE and ELARE and through the kernels; the map
+# kernels are checked at the router's batch of one event over N tasks,
+# and timed at N = 8.
+ROUTER_REQUESTS, ROUTER_RATE = 400, 1000.0
+ROUTER_RUNS = (("FELARE", None), ("FELARE", "map"), ("ELARE", None),
+               ("ELARE", "map"), ("ELARE", "phase1"))
+ROUTER_N = (1, 2, 3, 5, 8, 13, 21)
+ROUTER_TIMED_N = 8
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # The spread of q and k in the flash cases: 0.5 N(0, 1) as in
 # tests/test_kernels.py (scores of std 0.25, a nearly flat softmax), and
@@ -419,10 +469,18 @@ FLASH_CASES = (  # B, Sq, Sk, H, Hkv, hd, causal, q_offset, kv_len
     (2, 96, 130, 4, 2, 256, True, 34, "ragged"),
     (4, 1, 200, 8, 2, 80, False, 0, "zero"),
     (8, 1024, 1024, 32, 32, 80, True, 0, None),
+    # the dense serve shapes: g = 2, 3 and 8 at head dim 128
+    (8, 1024, 1024, 16, 8, 128, True, 0, None),
+    (8, 1024, 1024, 24, 8, 128, True, 0, None),
+    (8, 1024, 1024, 64, 8, 128, True, 0, None),
 )
 DECODE_CASES = (  # B, Sk, H, Hkv, hd
     (2, 256, 4, 4, 64), (2, 512, 8, 2, 64), (2, 1024, 4, 1, 128),
     (2, 192, 2, 2, 32), (8, SERVE_MAX_SEQ, 32, 32, 80),
+    # the dense serve shapes (g = 3 on the kernel's 4-head instance with
+    # one head masked)
+    (8, SERVE_MAX_SEQ, 16, 8, 128), (8, SERVE_MAX_SEQ, 24, 8, 128),
+    (8, SERVE_MAX_SEQ, 64, 8, 128),
 )
 # Decode at the boundaries of the kernel's split of the cache over 8 blocks
 # (chunks of ceil(Sk / 8) keys rounded up to 8), 8 query heads per kv head.
@@ -562,6 +620,14 @@ def kernel_inputs(B, N, M, S, seed, device):
     return {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
 
 
+def router_inputs(N, seed, device):
+    """Map-kernel inputs of one router event (B = 1) over N tasks: row 1
+    of :func:`kernel_inputs` (row 0 has no free machine)."""
+    x = kernel_inputs(2, N, 4, 4, seed, device)
+    return {k: v if k in ("eet", "p_dyn") else v[1:2].contiguous()
+            for k, v in x.items()}
+
+
 def evict_edges(x, seed):
     """``evict_stats`` inputs at their edges: row 0 without a free machine,
     30 % of the deadlines exactly start + e of a random machine, 10 % of
@@ -655,6 +721,32 @@ def check_kernels(device) -> dict:
             f"phase1_map {label}"))
         cases += 3
         emit("kernels", shape=label, **shape, cases=cases, equal=True)
+    # the router's calls: B = 1, N changing from call to call, fresh
+    # outputs each time
+    for N in ROUTER_N:
+        x = router_inputs(N, seed=N, device=device)
+        for nom, key, drop in itertools.product(
+                mf.NOMINATOR_KINDS, mf.KEY_KINDS, mf.DROP_KINDS):
+            kw = dict(nominator=nom, phase2_key=key, drop_rule=drop)
+            out_k = map_fused.map_decide(*map_decide_args(x),
+                                         x["suffered"], **kw)
+            torch.cuda.synchronize()
+            errs["map_decide"] = max(errs["map_decide"], compare(
+                out_k, map_fused.map_decide_plain(*map_decide_args(x),
+                                                  x["suffered"], **kw),
+                f"map_decide router N={N} {kw}"))
+        out_k = map_fused.evict_stats(*evict_stats_args(x))
+        torch.cuda.synchronize()
+        errs["evict_stats"] = max(errs["evict_stats"], compare(
+            out_k, map_fused.evict_stats_plain(*evict_stats_args(x)),
+            f"evict_stats router N={N}"))
+        out_k = phase1_map.phase1_map(*phase1_args(x))
+        torch.cuda.synchronize()
+        errs["phase1_map"] = max(errs["phase1_map"], compare(
+            out_k, phase1_map.phase1_map_plain(*phase1_args(x)),
+            f"phase1_map router N={N}"))
+    emit("kernels", shape="router", B=1, N=list(ROUTER_N), M=4, S=4,
+         equal=True)
     return errs
 
 
@@ -2336,10 +2428,235 @@ def run_serve_parity(device, params_bf16, batch) -> None:
         require(err <= 2e-2, f"bf16 {kind} block: rel err {err}")
 
 
-def profile_sim(label: str, sim, flat, steps: int) -> float:
+# --------------------------------------------------------------------------
+# Dense GQA serving at full width
+# --------------------------------------------------------------------------
+def run_dense_serve(device) -> dict:
+    """internlm2-1.8b and phi4-mini-3.8b at their published width and
+    depth, command-r-35b at full width and 16 of 40 layers, each serving
+    8 x 1024-token prompts for 64 greedy tokens through
+    ``make_serve_steps`` on the kernels. Returns each arch's launch
+    counts of the timed run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.train import make_serve_steps
+
+    out = {}
+    for arch, n_layers in DENSE_SERVE:
+        cfg = get_config(arch)
+        full_layers = cfg.n_layers
+        if n_layers is not None:
+            cfg = cfg.scaled(n_layers=n_layers)
+        require(cfg.attn_impl == "kernel", "the serve path must run the "
+                                           "kernels")
+        gen = torch.Generator(device=device).manual_seed(0)
+        t0 = time.perf_counter()
+        params = transformer.init(cfg, gen, device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(int(t.numel()) for t in _leaves(params))
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in _leaves(params))
+        toks = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+        batch = {"tokens": torch.as_tensor(toks)}
+        prefill_step, decode_step = make_serve_steps(cfg, device=device)
+        logits, cache = prefill_step(params, batch, max_seq=SERVE_MAX_SEQ)
+        decode_step(params, cache, logits.argmax(-1))        # warm-up
+        del logits, cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base_mem = torch.cuda.memory_allocated(device)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        reset_counts()
+        ev[0].record()
+        logits, cache = prefill_step(params, batch, max_seq=SERVE_MAX_SEQ)
+        ev[1].record()
+        finite = torch.isfinite(logits).all()
+        gen_toks = []
+        for _ in range(SERVE_NEW):
+            tok = logits.argmax(-1)
+            gen_toks.append(tok)
+            logits, cache = decode_step(params, cache, tok)
+            finite = finite & torch.isfinite(logits).all()
+        ev[2].record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(device)
+        prefill_ms = ev[0].elapsed_time(ev[1])
+        decode_ms = ev[1].elapsed_time(ev[2])
+        gen_toks = torch.cat(gen_toks, 1)
+        expect = {"flash_attention": cfg.n_layers,
+                  "decode_attention": cfg.n_layers * SERVE_NEW,
+                  "ssd_scan_tc": 0, "ssd_scan": 0}
+        emit("serve_dense", arch=arch, layers=cfg.n_layers,
+             published_layers=full_layers,
+             cut=None if n_layers is None else
+             f"depth {n_layers} of {full_layers} layers, full width",
+             heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+             params=n_params, weight_bytes=weight_bytes,
+             init_seconds=init_s, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+             new_tokens=SERVE_NEW,
+             launches={k: counts[k] for k in expect}, expected=expect,
+             prefill_ms=prefill_ms, decode_ms_per_step=decode_ms / SERVE_NEW,
+             prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT / prefill_ms
+             * 1e3,
+             decode_tokens_per_s=SERVE_BATCH * SERVE_NEW / decode_ms * 1e3,
+             end_to_end_ms=prefill_ms + decode_ms,
+             peak_memory_bytes=peak, memory_before_bytes=base_mem,
+             kv_cache_bytes=sum(cache[k].numel() * cache[k].element_size()
+                                for k in ("k", "v")),
+             first_tokens=gen_toks[0, :8].tolist())
+        require(bool(finite), f"serve_dense {arch}: non-finite logits")
+        require(tuple(gen_toks.shape) == (SERVE_BATCH, SERVE_NEW)
+                and int(gen_toks.min()) >= 0
+                and int(gen_toks.max()) < cfg.vocab_size,
+                f"serve_dense {arch}: tokens out of range")
+        require(cache["len"].tolist() == [SERVE_MAX_SEQ] * SERVE_BATCH,
+                f"serve_dense {arch}: cache length {cache['len'].tolist()}")
+        for k, v in expect.items():
+            require(counts[k] == v, f"serve_dense {arch}: {k}: {counts[k]} "
+                                    f"launches, {v} expected")
+        del cache, logits
+        split = {"prefill": device_split(lambda: prefill_step(
+            params, batch, max_seq=SERVE_MAX_SEQ))}
+        _, c2 = prefill_step(params, batch, max_seq=SERVE_MAX_SEQ)
+        tok = gen_toks[:, :1].contiguous()
+        split["decode_step"] = device_split(
+            lambda: decode_step(params, c2, tok))
+        emit("serve_dense_profile", arch=arch, **split)
+        out[arch] = {k: counts[k] for k in expect}
+        del params, c2
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# The serving front: the router and the elastic launcher
+# --------------------------------------------------------------------------
+def router_name(heuristic: str, fused) -> str:
+    return heuristic if fused is None else \
+        f"{heuristic}_FUSED_{fused.upper()}"
+
+
+def run_router(device) -> dict:
+    """launch/serve.py's loop on the card (400 requests at 1000/s over the
+    default four archs and four machine groups) under each of
+    ``ROUTER_RUNS``, the fused ones registered under names: every
+    ``metrics()`` field equal to its plain run's on the card and to the
+    same name's run on the CPU, and each run's launches equal to its
+    policy calls (FELARE on the map kernels: one evict_stats and one
+    map_decide per call). Returns the launch counts of the card's runs."""
+    import numpy as np
+
+    from repro_torch.core import policy
+    from repro_torch.launch import serve
+
+    wrap = {"map": policy.with_fused_map, "phase1": policy.with_fused_phase1}
+    for heuristic, fused in ROUTER_RUNS:
+        if fused is not None:
+            policy.register(router_name(heuristic, fused),
+                            wrap[fused](heuristic), overwrite=True)
+
+    def run(name, dev, requests=ROUTER_REQUESTS):
+        args = serve.parse_args([
+            "--requests", str(requests), "--rate", str(ROUTER_RATE),
+            "--heuristic", name, "--device", str(dev)])
+        reset_counts()
+        t0 = time.perf_counter()
+        router = serve.run(args)
+        return router, time.perf_counter() - t0, read_counts()
+
+    for heuristic, fused in ROUTER_RUNS:      # warm-up: first launches
+        run(router_name(heuristic, fused), device, requests=20)
+    total, metrics = {}, {}
+    for heuristic, fused in ROUTER_RUNS:
+        name = router_name(heuristic, fused)
+        router, seconds, counts = run(name, device)
+        cpu, cpu_seconds, _ = run(name, "cpu")
+        m = router.metrics()
+        metrics[name] = m
+        calls = router.map_calls
+        expect = {"map_decide": calls if fused == "map" else 0,
+                  "evict_stats": calls if fused == "map"
+                  and heuristic == "FELARE" else 0,
+                  "phase1_map": calls if fused == "phase1" else 0}
+        emit("router", heuristic=heuristic, fused=fused, device=str(device),
+             requests=ROUTER_REQUESTS, rate=ROUTER_RATE,
+             map_calls=calls, mean_tasks_per_call=router.map_tasks / calls,
+             host_ms_per_map_event=router.map_seconds / calls * 1e3,
+             cpu_host_ms_per_map_event=cpu.map_seconds / cpu.map_calls * 1e3,
+             seconds=seconds, cpu_seconds=cpu_seconds,
+             launches={k: counts[k] for k in expect}, expected=expect,
+             completion=m["collective_completion_rate"],
+             jain=m["jain_fairness"], energy=float(m["energy"]),
+             energy_wasted=float(m["energy_wasted"]),
+             completed=m["completed"].tolist(), missed=m["missed"].tolist(),
+             cancelled=m["cancelled"].tolist())
+        for k, v in expect.items():
+            require(counts[k] == v, f"router {name}: {k}: {counts[k]} "
+                                    f"launches, {v} expected")
+        for label, other in (("cpu", cpu.metrics()),
+                             ("plain", metrics[heuristic])):
+            for k, v in other.items():
+                require(np.array_equal(np.asarray(m[k]), np.asarray(v)),
+                        f"router {name}: {k} differs from the {label} run")
+        for k in expect:
+            total[k] = total.get(k, 0) + counts[k]
+    return total
+
+
+def run_elastic(device) -> None:
+    """launch/elastic.py at its defaults (paper_x4, 400 tasks at 6/s, site
+    1 out for the middle half) on the card and on the CPU: the same
+    result."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch.launch import elastic
+
+    res, text = {}, {}
+    for dev in ("cuda", "cpu"):
+        dev = str(device) if dev == "cuda" else dev
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res[dev] = elastic.main(["--device", dev])
+        text[dev] = (buf.getvalue(), time.perf_counter() - t0)
+    card, cpu = res[str(device)], res["cpu"]
+    emit("elastic", device=str(device), ontime=card["ontime"],
+         orphans=card["orphans"],
+         min_sites_live=card["min_sites_live"],
+         healthy_min=int(card["healthy"].min()),
+         summary=text[str(device)][0].splitlines()[:2],
+         seconds=text[str(device)][1], cpu_seconds=text["cpu"][1])
+    require(text[str(device)][0] == text["cpu"][0],
+            "elastic: the card's printout differs from the CPU's")
+    for k, v in cpu.items():
+        require(np.array_equal(np.asarray(card[k]), np.asarray(v)),
+                f"elastic: {k} differs from the CPU run")
+    require(card["min_sites_live"] < 4, "elastic: no site left the fleet")
+
+
+def profile_sim(label: str, sim, flat, steps: int, windows: int = 1
+                ) -> float:
     """Profile ``steps`` batched iterations of ``sim`` on ``flat`` after a
     warm-up; emit where the time goes and return the kernels launched per
-    iteration."""
+    iteration.
+
+    The run launches the same kernels every time, but torch.profiler
+    loses some of their records in many windows and never adds one
+    (paper_x2's window read 403.4, 405.0 and 408.8 kernels per iteration
+    in three runs of the same code; four windows of one run counted
+    22843, 23102, 23099 and 23101 records). So a count that a check
+    reads is profiled in ``windows`` windows and the one with the most
+    records is kept; every count is reported. Each window costs seconds
+    (``key_averages``), so the others take one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2349,22 +2666,28 @@ def profile_sim(label: str, sim, flat, steps: int) -> float:
     sim(flat)
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
-    # the device's records alone: the host's op records are not read,
-    # and building them cost each window seconds in key_averages
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim(flat)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    require(bool(kernels), f"{label}: the profiler recorded no kernel")
+    counts, best = [], None
+    for _ in range(windows):
+        # the device's records alone: the host's op records are not read,
+        # and building them cost each window seconds in key_averages
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sim(flat)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        require(bool(kernels), f"{label}: the profiler recorded no kernel")
+        counts.append(sum(e.count for e in kernels))
+        if best is None or counts[-1] > best[0]:
+            best = (counts[-1], kernels, wall)
+    count, kernels, wall = best
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    per_iteration = sum(e.count for e in kernels) / steps
+    per_iteration = count / steps
     emit("profile", run=label, replicates=int(flat.arrival.shape[0]),
-         iterations=steps,
+         iterations=steps, records_per_window=counts,
          wall_ms_per_iteration=wall_plain * 1e3 / steps,
          wall_ms_per_iteration_profiled=wall * 1e3 / steps,
          device_busy_ms_per_iteration=busy_us * 1e-3 / steps,
@@ -2426,7 +2749,8 @@ def profile_main_path(device, reps: int, n_tasks: int, fed_reps: int,
             dispatcher=dispatch.with_fused_balance("fair_spill"),
             site_of_machine=system.site_of_machine)
         per_iteration[name] = profile_sim(
-            f"FELARE fair_spill fused_map {name}", sim, flat, steps)
+            f"FELARE fair_spill fused_map {name}", sim, flat, steps,
+            windows=3)
     require(abs(per_iteration["paper_x2"] - per_iteration["paper_x8"]) <= 2,
             f"kernels per iteration grow with the sites: {per_iteration}")
 
@@ -2575,9 +2899,12 @@ def map_path_inputs(path: str, device) -> dict:
     machines each with its own EET table; tiered_x4's masked fold, 2 rates
     x 10 replicates x 4 sites, each row all 20 machines; the cvb fleet's
     150 replicates of 8 types on 6 machines; mixed_sites' masked fold, 150
-    x 2 rows of all 7 machines."""
+    x 2 rows of all 7 machines; the router's one event over 8 tasks on its
+    4 machines."""
     if path == "flat":
         return kernel_inputs(**MAIN_SHAPE, seed=5, device=device)
+    if path == "router":
+        return router_inputs(ROUTER_TIMED_N, seed=5, device=device)
     if path == "cvb":
         return kernel_inputs(**FLEET_SHAPES["cvb"], seed=5, device=device)
     if path == "mixed_sites":
@@ -2612,21 +2939,15 @@ def timed_row(name, kern, plain, moved, ops, rate=None, iters=100,
             "bytes": moved, "operations": ops}
 
 
-def time_kernels(device, errs: dict) -> list:
-    """The scheduling kernels at the shapes the paths give them: map_decide
-    and evict_stats at the flat, paper_x8, tiered_x4, cvb (8 x 6) and
-    mixed_sites (4 x 7, masked fold) shapes, phase1_map at the flat, cvb
-    and mixed_sites ones (the paths that run it), balance_scan at
-    paper_x8's and tiered_x4's. Each row's top-level numbers are those of
-    its first shape; ``by_shape`` holds every shape's."""
-    import torch
-
+def time_map_kernels(device, paths) -> dict:
+    """map_decide and evict_stats at each path's shape, phase1_map at the
+    shapes of the paths that run it: {kernel: {path: times}}."""
     from repro_torch.kernels import map_fused, phase1_map
 
     kinds = dict(nominator="min_energy_feasible", phase2_key="value",
                  drop_rule="stale_hopeless")          # FELARE's kinds
     by_shape = {"map_decide": {}, "evict_stats": {}, "phase1_map": {}}
-    for path in ("flat", "paper_x8", "tiered_x4", "cvb", "mixed_sites"):
+    for path in paths:
         x = map_path_inputs(path, device)
         B, N = x["deadline"].shape
         M = x["eet"].shape[-1]
@@ -2647,7 +2968,7 @@ def time_kernels(device, errs: dict) -> list:
                 nbytes(*es_args, *map_fused.evict_stats(*es_args)),
                 B * (3 * x["eet"].shape[-2] * M + 3 * N)),
         }
-        if path in ("flat", "cvb", "mixed_sites"):
+        if path in ("flat", "cvb", "mixed_sites", "router"):
             p1_args = phase1_args(x)
             table["phase1_map"] = (
                 lambda: phase1_map.phase1_map(*p1_args),
@@ -2658,6 +2979,21 @@ def time_kernels(device, errs: dict) -> list:
             r = timed_row(name, kern, plain, moved, ops)
             by_shape[name][path] = {"rows": B, "N": N, "M": M, **r}
             emit("times", kernel=name, path=path, rows=B, N=N, M=M, **r)
+    return by_shape
+
+
+def time_kernels(device, errs: dict) -> list:
+    """The scheduling kernels at the shapes the paths give them: map_decide
+    and evict_stats at the flat, paper_x8, tiered_x4, cvb (8 x 6) and
+    mixed_sites (4 x 7, masked fold) shapes, phase1_map at the flat, cvb
+    and mixed_sites ones (the paths that run it), balance_scan at
+    paper_x8's and tiered_x4's. Each row's top-level numbers are those of
+    its first shape; ``by_shape`` holds every shape's (the router's are
+    added by :func:`time_serving_front`)."""
+    import torch
+
+    by_shape = time_map_kernels(device, ("flat", "paper_x8", "tiered_x4",
+                                         "cvb", "mixed_sites"))
     by_shape["balance_scan"] = time_balance_scan(device)
     rows = []
     for name, shapes in by_shape.items():
@@ -2901,6 +3237,131 @@ def time_model_kernels(device, errs: dict) -> list:
     return rows
 
 
+def time_dense_attention(device) -> dict:
+    """Flash and decode attention at the dense configs' serve shapes (bf16,
+    B = 8, 1024 prompt tokens, decode against 1056 of 1088 cached rows, 8
+    kv heads of 128, g = 2, 3 and 8): device and eager times of the
+    kernel, its plain version and one ``scaled_dot_product_attention``
+    call, and the bound: {kernel: {arch: times}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, flash_attention
+
+    gen = torch.Generator(device=device).manual_seed(22)
+    bf16 = torch.bfloat16
+    B, S, Sk = SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_SEQ
+    kv = SERVE_PROMPT + SERVE_NEW // 2
+    by_shape = {"flash_attention": {}, "decode_attention": {}}
+    for arch, _ in DENSE_SERVE:
+        cfg = get_config(arch)
+        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        q = card_normal(gen, (B, S, H, hd), bf16)
+        k, v = (card_normal(gen, (B, S, Hkv, hd), bf16) for _ in range(2))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        q1 = card_normal(gen, (B, 1, H, hd), bf16)
+        ck, cv = (card_normal(gen, (B, Sk, Hkv, hd), bf16) for _ in range(2))
+        kv_len = torch.full((B,), kv, dtype=torch.int32, device=device)
+        q1t, ckt, cvt = (t.transpose(1, 2).contiguous()
+                         for t in (q1, ck, cv))
+        mask = (torch.arange(Sk, device=device)
+                < kv_len[:, None])[:, None, None]
+        flash_ops = 4 * B * H * hd * S * (S + 1) // 2
+        decode_ops = 4 * B * H * kv * hd
+        table = {
+            "flash_attention": (
+                lambda: flash_attention.flash_attention(q, k, v,
+                                                        causal=True),
+                lambda: flash_attention.flash_attention_plain(q, k, v,
+                                                              causal=True),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True),
+                nbytes(q, k, v, q), flash_ops, dict(B=B, S=S)),
+            "decode_attention": (
+                lambda: decode_attention.decode_attention(q1, ck, cv,
+                                                          kv_len),
+                lambda: decode_attention.decode_attention_plain(
+                    q1, ck, cv, kv_len),
+                lambda: F.scaled_dot_product_attention(
+                    q1t, ckt, cvt, attn_mask=mask, enable_gqa=True),
+                nbytes(q1, q1, kv_len) + 2 * B * Hkv * kv * hd * 2,
+                decode_ops, dict(B=B, Sk=Sk, kv_len=kv)),
+        }
+        for name, (kern, plain, lib, moved, ops, shape) in table.items():
+            t_bytes = moved / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / BF16_OPS_PER_S * 1e3
+            r = {"H": H, "Hkv": Hkv, "hd": hd, "g": H // Hkv, **shape,
+                 "ms": device_ms(kern, 20), "plain_ms": device_ms(plain, 5),
+                 "eager_ms": time_ms(kern, 20),
+                 "library_ms": device_ms(lib, 20),
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            by_shape[name][arch] = r
+            emit("times", kernel=name, arch=arch, bytes=moved,
+                 operations=ops, share_of_bound=r["bound_ms"] / r["ms"],
+                 vs_library=r["ms"] / r["library_ms"], **r)
+        del q, k, v, qt, kt, vt, q1, ck, cv, q1t, ckt, cvt
+    return by_shape
+
+
+def time_serving_front(args) -> int:
+    """``--serving-front-times``: the kernels at the shapes the serving
+    front gives them, the map kernels at the router's and the attention
+    kernels at the dense configs', in a process of its own (see
+    :func:`add_serving_front_times`); its last line is
+    ``{"serving_front_times": {kernel: {shape: times}}}``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    require(torch.cuda.is_available(), "no CUDA device in the timing "
+                                       "process")
+    device = torch.device("cuda")
+    out = {**time_map_kernels(device, ("router",)),
+           **time_dense_attention(device)}
+    print(json.dumps({"serving_front_times": out}), flush=True)
+    return 0
+
+
+def add_serving_front_times(rows) -> None:
+    """Time the serving front's shapes in a fresh process and add them to
+    the rows' ``by_shape`` (the attention rows first get zamba2-2.7b's,
+    their top-level numbers). A fresh process, because torch.profiler
+    loses device records once a process has opened many profiling
+    windows: with these windows in the main process, the profile phase
+    after them read fewer kernels per iteration on paper_x2 than on
+    paper_x8 (403.4 against 411.6), and with the profile moved before
+    them the first timing window read no record."""
+    from repro_torch.configs import get_config
+
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"),
+         "--serving-front-times"],
+        stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, CHIP_SMOKE_T0=repr(_T0)))
+    extra = None
+    for line in proc.stdout.splitlines():
+        if line.startswith('{"serving_front_times"'):
+            extra = json.loads(line)["serving_front_times"]
+        else:
+            print(line, flush=True)
+    require(proc.returncode == 0 and extra is not None,
+            f"the serving front's timing process failed "
+            f"(exit code {proc.returncode})")
+    by_name = {r["name"]: r for r in rows}
+    zamba = get_config(SERVE_ARCH)
+    for name in ("flash_attention", "decode_attention"):
+        row = by_name[name]
+        row["by_shape"] = {SERVE_ARCH: {
+            "H": zamba.n_heads, "Hkv": zamba.n_kv_heads, "hd": zamba.hd,
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}}}
+    for name, shapes in extra.items():
+        for shape, r in shapes.items():
+            by_name[name]["by_shape"][shape] = r
+
+
 # --------------------------------------------------------------------------
 # The sweep phases (9-20) in six processes at once
 # --------------------------------------------------------------------------
@@ -2928,8 +3389,10 @@ def metrics_digest(result, heuristic: str) -> str:
 
 
 def group_flat(device, args) -> dict:
-    """Phases 9 and 10: the flat sweep and its parity."""
+    """Phases 9 and 10: the flat sweep and its parity; then phase 8c (the
+    elastic launcher), off the main process's serial path."""
     flat, _, res = run_main_path(device, args.reps, args.tasks)
+    run_elastic(device)
     return {"paths": {"flat": flat}, "by_shape": {"flat": flat},
             "flat_felare": metrics_digest(res, "FELARE")}
 
@@ -3082,9 +3545,14 @@ def main(argv=None) -> int:
     ap.add_argument("--group", choices=GROUPS,
                     help="run one group of the sweep phases (the script "
                          "starts them all itself)")
+    ap.add_argument("--serving-front-times", action="store_true",
+                    help="time the kernels at the serving front's shapes "
+                         "(the script starts this process itself)")
     args = ap.parse_args(argv)
     if args.group:
         return run_group(args)
+    if args.serving_front_times:
+        return time_serving_front(args)
 
     import torch
 
@@ -3161,6 +3629,7 @@ def main(argv=None) -> int:
     # that has launched millions of kernels, torch.profiler was seen to
     # drop device records (fewer microseconds than the bound, then none).
     rows = time_kernels(device, errs) + time_model_kernels(device, errs)
+    add_serving_front_times(rows)
     if args.kernels_only:
         emit("done", kernels_only=True, seconds=time.perf_counter() - t_start)
         return 0
@@ -3169,6 +3638,8 @@ def main(argv=None) -> int:
     run_serve_parity(device, params_bf16, prompt)
     del params_bf16
     torch.cuda.empty_cache()
+    dense = run_dense_serve(device)
+    router = run_router(device)
     if args.reps != 30 or args.tasks != 2000:
         emit("cut", reps=args.reps, tasks=args.tasks,
              note="flat path run below paper scale (30 reps x 2000 tasks)")
@@ -3199,8 +3670,12 @@ def main(argv=None) -> int:
          note="the scenarios phase's plain-path parity at 5 replicates x "
               "300 tasks; its sweeps run at full width")
     paths = {"flat": {}, "federated": {}, "serve": serve, "observed": {},
-             "faults": {}, "network": {}, "scenarios": {}}
-    shape_counts = {}
+             "faults": {}, "network": {}, "scenarios": {},
+             "serve_dense": {}, "router": router}
+    for counts in dense.values():
+        for k, v in counts.items():
+            paths["serve_dense"][k] = paths["serve_dense"].get(k, 0) + v
+    shape_counts = {SERVE_ARCH: serve, "router": router, **dense}
     results = run_groups(args)
     # the flat FELARE sweep of phase 9 and the unobserved one of phase 13
     # (whose Metrics phases 13 and 15 hold against the observed and plain

@@ -63,6 +63,7 @@ class ModelConfig:
     attn_impl: str = "kernel"
     ssm_impl: str = "kernel"
     # kept for the reference's signature; the port has no training yet
+    # (ROADMAP A6b)
     remat: bool = True
 
     def __post_init__(self):
@@ -138,3 +139,12 @@ class ModelConfig:
         if not self.tie_embeddings:
             emb *= 2
         return body + emb
+
+    def active_params(self) -> int:
+        """Activated parameters per token (MoE: only routed experts)."""
+        if self.family != "moe":
+            return self.n_params()
+        d, ff = self.d_model, self.d_ff
+        unused = self.n_layers * (
+            (self.n_experts - self.experts_per_token) * 3 * d * ff)
+        return self.n_params() - unused

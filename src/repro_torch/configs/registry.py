@@ -1,16 +1,25 @@
 """Architecture registry: arch id -> :class:`ModelConfig` (full + smoke).
 
-The port holds the architectures whose serving path it runs. The
-reference's other ids (moe, xlstm, audio and vlm families) wait for their
-families (ROADMAP A1) and raise ``KeyError`` here.
+Counterpart of ``repro/configs/registry.py``: all ten ids, in the
+reference's order. Every config resolves; a config of a family the port
+does not run yet (moe, ssm, audio, vlm) is data only, and building a
+model from it raises ``NotImplementedError`` (ROADMAP A6b).
 """
 from __future__ import annotations
 
 import importlib
 
 _MODULES = {
+    "command-r-35b": "command_r_35b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "internlm2-1.8b": "internlm2_1_8b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
+    "xlstm-125m": "xlstm_125m",
+    "whisper-medium": "whisper_medium",
+    "granite-moe-3b-a800m": "granite_moe_3b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
     "zamba2-2.7b": "zamba2_2_7b",
+    "internvl2-1b": "internvl2_1b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -18,8 +27,7 @@ ARCH_IDS = tuple(_MODULES)
 
 def _mod(arch: str):
     if arch not in _MODULES:
-        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP A1); the "
-                       f"port has {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch!r}; choose from {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 
@@ -29,3 +37,7 @@ def get_config(arch: str):
 
 def get_smoke_config(arch: str):
     return _mod(arch).SMOKE
+
+
+def all_configs():
+    return {a: get_config(a) for a in ARCH_IDS}

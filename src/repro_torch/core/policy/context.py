@@ -153,3 +153,11 @@ class SchedContext:
     def with_view(self, view: MachineView) -> "SchedContext":
         """A fresh context over modified machine state (post-eviction)."""
         return dataclasses.replace(self, view=view)
+
+    def with_qfree(self, qfree) -> "SchedContext":
+        """A fresh context whose free-slot mask is overridden (for the
+        legacy ``elare_phase1`` callers that compute ``qfree``
+        themselves)."""
+        ctx = dataclasses.replace(self)
+        ctx.__dict__["qfree"] = qfree
+        return ctx

@@ -201,6 +201,19 @@ class SimState(NamedTuple):
     e_xfer: Optional[torch.Tensor] = None    # (B, T) f32 transfer J by tier
 
 
+class EngineState(NamedTuple):
+    """The event-loop carrier: core state + observer aux.
+
+    ``aux`` maps each attached observer's name to its own fixed-shape
+    tree of tensors, so extensions carry state through the loop without
+    touching :class:`SimState` fields. With no observers it is an empty
+    dict.
+    """
+
+    sim: SimState
+    aux: dict  # observer name -> tree of tensors, fixed per simulation
+
+
 class Metrics(NamedTuple):
     """Aggregate results of simulated traces (leading batch dims kept)."""
 

@@ -6,7 +6,9 @@ from repro_torch.experiments.spec import (
     DEFAULT_RATES,
     SweepSpec,
     parse_rates,
+    replace,
 )
 
 __all__ = ["DEFAULT_HEURISTICS", "DEFAULT_RATES", "SweepResult",
-           "SweepSpec", "parse_rates", "run_sweep", "simulate_sweep"]
+           "SweepSpec", "parse_rates", "replace", "run_sweep",
+           "simulate_sweep"]

@@ -338,3 +338,8 @@ class SweepSpec:
                             for ob in d.get("observers", ())),
             dynamics=dynamics,
             network=net)
+
+
+def replace(spec: SweepSpec, **kwargs) -> SweepSpec:
+    """``dataclasses.replace`` re-exported for fluent spec tweaking."""
+    return dataclasses.replace(spec, **kwargs)

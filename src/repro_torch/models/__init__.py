@@ -6,9 +6,10 @@ from repro_torch.models.transformer import (
     forward,
     init,
     init_cache,
+    param_shapes,
     param_spec,
     prefill,
 )
 
 __all__ = ["layers", "ssm", "transformer", "init", "forward", "prefill",
-           "decode_step", "init_cache", "param_spec"]
+           "decode_step", "init_cache", "param_shapes", "param_spec"]

@@ -89,7 +89,7 @@ def rope(x, positions, theta: float):
 # --------------------------------------------------------------------------
 def attn_init(cfg: ModelConfig):
     """QKVO projections (self-attention; cross-attention comes with the
-    audio family, ROADMAP A1)."""
+    audio family, ROADMAP A6b)."""
     d, hd = cfg.d_model, cfg.hd
     p = {
         "wq": _dense_init((d, cfg.n_heads * hd), cfg.p_dtype),
@@ -157,7 +157,7 @@ def sdpa_plain(q, k, v, *, causal: bool, kv_len=None, q_offset=0):
 def sdpa(cfg: ModelConfig, q, k, v, *, causal, kv_len=None, q_offset=0):
     """Implementation dispatch: ``plain`` | ``kernel`` (decode attention
     for one query row against a cache, flash attention otherwise).
-    ``sdpa_xla_chunked`` is not ported yet (ROADMAP A1)."""
+    ``sdpa_xla_chunked`` is not ported yet (ROADMAP A6b)."""
     if cfg.attn_impl == "plain":
         return sdpa_plain(q, k, v, causal=causal, kv_len=kv_len,
                           q_offset=q_offset)

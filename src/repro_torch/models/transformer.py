@@ -8,7 +8,7 @@ Counterpart of ``repro/models/transformer.py`` for two families:
             every ``attn_every`` layers (per-invocation norms)
 
 The others (moe, ssm, audio, vlm) raise ``NotImplementedError`` until
-they are ported (ROADMAP A1). Parameters are nested dicts of tensors with
+they are ported (ROADMAP A6b). Parameters are nested dicts of tensors with
 the reference's keys, per-layer leaves stacked on a leading (L, ...) axis;
 the layer loops are Python loops over that axis. ``forward`` and
 ``prefill`` return final hidden states; the LM head is applied by the
@@ -33,7 +33,7 @@ FAMILIES = ("dense", "hybrid")
 def _check_family(cfg: ModelConfig) -> str:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP A1); the "
+            f"family {cfg.family!r} is not ported yet (ROADMAP A6b); the "
             f"port runs {FAMILIES}")
     return cfg.family
 
@@ -81,6 +81,15 @@ def param_spec(cfg: ModelConfig):
         params["shared_attn"] = _attn_block_init(cfg)
         params["inv_norms"] = Leaf((n_inv, cfg.d_model), cfg.p_dtype, "ones")
     return params
+
+
+def param_shapes(cfg: ModelConfig):
+    """The parameter tree as tensors on the ``meta`` device: the shapes
+    and dtypes of :func:`init`'s, nothing allocated (the counterpart of
+    the reference's ``jax.eval_shape`` of its init)."""
+    return tree_map(
+        lambda lf: torch.empty(lf.shape, dtype=lf.dtype, device="meta"),
+        param_spec(cfg))
 
 
 def init(cfg: ModelConfig, generator: torch.Generator | None = None, *,

@@ -2,7 +2,7 @@
 
 Counterpart of ``make_serve_steps`` in ``repro/train/steps.py`` without
 the mesh: one device, no sharding. ``make_train_step`` waits for the
-training slice (ROADMAP A1).
+training slice (ROADMAP A6b).
 """
 from __future__ import annotations
 

@@ -19,8 +19,8 @@ taken by :func:`test_faults_read_nothing_back`) and the pin of
 ``dynamics="none"`` to a frozen snapshot (the port is held against the
 live reference, never a snapshot; :func:`test_dynamics_none_is_the_
 unfaulted_loop` pins the degenerate case instead).
-``test_elastic_launch_smoke`` waits for the port's ``launch/`` (ROADMAP
-A7).
+``test_elastic_launch_smoke``'s counterpart, held against the
+reference's values, is in ``tests/test_torch_launch.py``.
 """
 import functools
 import inspect

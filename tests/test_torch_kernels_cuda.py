@@ -909,3 +909,98 @@ def test_scenario_fleet_fused_run_matches_plain_run_on_card(
                                   device="cuda")
     for a, b, f in zip(fused, plain, fused._fields):
         assert torch.equal(a, b), (scenario, f)
+
+
+# --------------------------------------------------------------------------
+# The dense GQA serve shapes (hd 128) and the router's shapes (B = 1)
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [2, 3, 8])
+def test_dense_gqa_attention_at_hd_128_on_card(g, dtype):
+    """Flash and decode attention with g query heads per kv head at head
+    dim 128, the dense configs' (internlm2-1.8b g = 2, phi4-mini-3.8b
+    g = 3, command-r-35b g = 8; 8 kv heads), against their plain
+    versions: decode at g = 3 runs the kernel's 4-head instance with one
+    head masked."""
+    needs_card()
+    Hkv, hd, S = 8, 128, 192
+    H = g * Hkv
+    q = card_normal((2, S, H, hd), g, dtype)
+    k = card_normal((2, S, Hkv, hd), g + 1, dtype)
+    v = card_normal((2, S, Hkv, hd), g + 2, dtype)
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    assert_attention_close(got, flash_plain(causal=True), q, k, v)
+    Sk = 1088
+    q1 = card_normal((3, 1, H, hd), g + 3, dtype)
+    ck = card_normal((3, Sk, Hkv, hd), g + 4, dtype)
+    cv = card_normal((3, Sk, Hkv, hd), g + 5, dtype)
+    kv_len = torch.tensor([Sk, 1, 1056], dtype=torch.int32, device="cuda")
+    got = decode_attention.decode_attention(q1, ck, cv, kv_len)
+    assert_attention_close(got, decode_plain(kv_len), q1, ck, cv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 2, 3, 7, 17])
+def test_map_kernels_at_batch_one_on_card(N):
+    """The router's calls: one event (B = 1) of N tasks, N changing from
+    call to call; every output bit for bit with the plain version."""
+    needs_card()
+    t = {k: torch.as_tensor(v, device="cuda")
+         for k, v in kernel_inputs(1, N, 4, 4, seed=N).items()}
+    md = (t["now"], t["start"], t["p_dyn"], t["qfree"], t["eet"],
+          t["deadline"], t["pending"], t["task_type"])
+    for nom, key, drop in ALL_KINDS:
+        kw = dict(nominator=nom, phase2_key=key, drop_rule=drop)
+        got = map_fused.map_decide(*md, t["suffered"], **kw)
+        want = map_fused.map_decide_plain(*md, t["suffered"], **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (N, kw)
+    es = (t["start"], t["qfree"], t["eet"], t["deadline"], t["pending"],
+          t["task_type"])
+    for g, w in zip(map_fused.evict_stats(*es),
+                    map_fused.evict_stats_plain(*es)):
+        assert torch.equal(g, w), N
+    p1 = (t["start"], t["eet"][t["task_type"].long()].contiguous(),
+          t["deadline"], t["p_dyn"], t["pending"], t["qfree"])
+    for g, w in zip(phase1_map.phase1_map(*p1),
+                    phase1_map.phase1_map_plain(*p1)):
+        assert torch.equal(g, w), N
+
+
+@pytest.mark.cuda
+def test_router_fused_stream_matches_plain_on_card():
+    """The serving launcher's stream (120 requests, rate 1000) routed by
+    FELARE through the kernels on the card: every ``metrics()`` field
+    equal to plain FELARE's on the card and on the CPU, and one
+    ``evict_stats`` and one ``map_decide`` launch per policy call."""
+    needs_card()
+    from repro_torch.core import policy
+    from repro_torch.launch import serve
+
+    name = "FELARE_FUSED_MAP_CARD_TEST"
+    policy.register(name, policy.with_fused_map("FELARE"), overwrite=True)
+    try:
+        runs = {}
+        for label, heuristic, device in (("fused", name, "cuda"),
+                                         ("plain", "FELARE", "cuda"),
+                                         ("cpu", "FELARE", "cpu")):
+            mf.LAUNCHES.update({k: 0 for k in mf.LAUNCHES})
+            args = serve.parse_args(["--requests", "120", "--rate", "1000",
+                                     "--heuristic", heuristic,
+                                     "--device", device])
+            router = serve.run(args)
+            runs[label] = (router.metrics(), router.map_calls,
+                           dict(mf.LAUNCHES))
+    finally:
+        policy.unregister(name)
+    want = runs["cpu"][0]
+    for label in ("fused", "plain"):
+        got = runs[label][0]
+        for k, v in want.items():
+            assert np.array_equal(np.asarray(got[k]), np.asarray(v)), \
+                (label, k)
+    calls, launches = runs["fused"][1], runs["fused"][2]
+    assert calls > 0
+    assert launches["map_decide"] == launches["evict_stats"] == calls
+    assert runs["plain"][2]["map_decide"] == 0

@@ -10,6 +10,7 @@ its kernel path (whose wrappers take their plain versions on the CPU) and
 on its plain path. float32 at rtol 1e-4 and atol 1e-3 x max|want|, as in
 ``tests/test_models.py``; one bfloat16 case at atol 2e-2 x max|want|.
 """
+import dataclasses
 import functools
 
 import jax
@@ -31,6 +32,10 @@ from repro_torch.models import transformer as ttf
 from repro_torch.train import make_serve_steps
 
 ARCHS = ("qwen1.5-0.5b", "zamba2-2.7b")
+# the dense GQA configs: 16/8 heads (g = 2), 24/8 (g = 3), 64/8 (g = 8)
+# at full width; at smoke size g = 2, 3 and 2
+DENSE_GQA = ("internlm2-1.8b", "phi4-mini-3.8b", "command-r-35b")
+SERVED = ARCHS + DENSE_GQA
 B, S, MAX_SEQ, STEPS = 2, 32, 40, 3
 F32 = dict(dtype="float32", param_dtype="float32")
 
@@ -106,7 +111,7 @@ def assert_close(got, want, rel_atol, what, rtol=1e-4):
 
 @pytest.mark.parametrize("port_impl", ["kernel", "plain"])
 @pytest.mark.parametrize("jax_impl", ["pallas_interpret", "xla"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVED)
 def test_serving_path_matches_jax(arch, jax_impl, port_impl):
     want = jax_run(arch, jax_impl)
     got = port_run(arch, port_impl)
@@ -207,7 +212,7 @@ def test_hybrid_blocks_match_jax_in_bf16():
         xd = xn + dwant
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVED)
 def test_serve_steps_match_jax(arch):
     """``make_serve_steps`` on the CPU against the reference's, greedy:
     the prefill logits, then three decode steps fed each side's argmax."""
@@ -233,7 +238,7 @@ def test_serve_steps_match_jax(arch):
     assert tcache["len"].tolist() == [S + STEPS + 1] * B
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVED)
 def test_decode_matches_forward(arch):
     """prefill(S-1) + decode(1) == forward(S) at the last position (f32),
     the reference's own check, on the port alone."""
@@ -286,7 +291,7 @@ def test_init_follows_the_reference_distributions():
     assert torch.equal(again["embed"]["tok"], params["embed"]["tok"])
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVED)
 def test_full_config_matches_the_reference(arch):
     """Same fields, same analytic count, and a parameter tree of the JAX
     package's shapes at full width (nothing allocated on either side)."""
@@ -314,11 +319,28 @@ def test_full_config_matches_the_reference(arch):
 
 
 def test_other_architectures_and_families_wait_for_roadmap():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        treg.get_config("granite-moe-3b-a800m")
-    moe = port_cfg("qwen1.5-0.5b").scaled(family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.param_spec(moe)
+    """Every id of the registry resolves to the reference's config; one
+    of a family the port does not run yet is data only, and building its
+    parameters raises, naming ROADMAP A6 (tests/test_torch_configs.py
+    holds every id)."""
+    assert treg.ARCH_IDS == jreg.ARCH_IDS
+    moe = treg.get_config("granite-moe-3b-a800m")
+    want = jreg.get_config("granite-moe-3b-a800m")
+    assert moe.scaled(attn_impl="kernel") == moe
+    assert dataclasses.asdict(moe.scaled(attn_impl="plain", ssm_impl="plain")
+                              ) == {**dataclasses.asdict(want),
+                                    "attn_impl": "plain",
+                                    "ssm_impl": "plain"}
+    for arch in treg.ARCH_IDS:
+        cfg = treg.get_config(arch)
+        if cfg.family in ttf.FAMILIES:
+            continue
+        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+            ttf.param_spec(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        ttf.param_spec(port_cfg("qwen1.5-0.5b").scaled(family="moe"))
+    with pytest.raises(KeyError, match="unknown arch"):
+        treg.get_config("granite-moe-7b")
     with pytest.raises(ValueError, match="attn_impl"):
         ModelConfig(name="x", family="dense", n_layers=1, d_model=8,
                     n_heads=2, n_kv_heads=2, d_ff=8, vocab_size=8,
