@@ -12,9 +12,11 @@ The port's float32 products stay in float32 (TF32 is switched off for
 matmuls and cuDNN alike).
 
 Phases, one JSON line each; any failed check raises, so the script
-exits non-zero and prints no result line. Phases 1-8 run in this order
-in this process; phases 9-20 run in six processes at once on the same
-card (``GROUPS``: the flat sweep; the flat sweep observed and the
+exits non-zero and prints no result line. Phases 1-8c run in this order
+in this process; phases 8d-8e (the other model families' serving and
+the edge example) in a process of their own, alone on the card; then
+phases 9-20 in six processes at once on the same card
+(``SWEEP_GROUPS``: the flat sweep; the flat sweep observed and the
 faulted runs' parity; the paper_x8 sweeps, observed and faulted; the
 tiered_x4 sweep and the network; the workload scenarios and the flat
 synthetic fleets; the synthetic federations), each holding its own
@@ -91,11 +93,15 @@ launch counts, and their lines arrive interleaved:
               then flash attention's float32 instantiation at the same
               shape, and decode attention with 2, 4 and 8 query heads per
               kv head; then, in a process of its own
-              (``--serving-front-times``: torch.profiler loses records
-              once a process has opened many windows), the map kernels
-              at the router's shape (one event of 8 tasks) and flash and
-              decode attention at the dense configs' serve shapes (g = 2,
-              3, 8 at head dim 128);
+              (``--serving-front-times front``: torch.profiler loses
+              records once a process has opened many windows), the map
+              kernels at the router's shape (one event of 8 tasks) and
+              flash and decode attention at the dense configs' serve
+              shapes (g = 2, 3, 8 at head dim 128), and in another
+              (``--serving-front-times families``) at the other
+              families' (g = 3, 7 and 1 at head dim 64, g = 4 at 128;
+              whisper-medium's non-causal encoder over 1500 frames, its
+              decoder, and its cross-attention over 1500 rows);
   6. profile  where one batched event's time goes (the device's records
               alone): the first 64
               iterations of the flat FELARE and phase1 ELARE sweeps, of
@@ -153,6 +159,31 @@ launch counts, and their lines arrive interleaved:
   8c. elastic launch/elastic.py at its defaults on the card and on the
               CPU: the same printout and result, and a site left (in the
               flat sweep's group process, after phase 10);
+  8d. serve_families  (in a group process of its own, before phases
+              9-20) the moe, vlm, audio and ssm families at their
+              published width, bf16, random weights from torch.Generator
+              seed 0, 8 requests, 64 greedy tokens each, as in phase 8a:
+              granite-moe-3b-a800m (32 layers, 40 experts top-8) and
+              internvl2-1b (256 patches + 1024 tokens) at full depth,
+              phi3.5-moe-42b-a6.6b at 16 of its 32 layers (the line names
+              the cut), whisper-medium (24 + 24 layers; 1500 frames, a
+              4-token decoder prompt, caches of 1500 rows) and xlstm-125m
+              (12 layers, 1024 tokens). Launches, zeroed just before: one
+              flash_attention per attention block and prefill (whisper:
+              24 encoder, 24 decoder, 24 cross) and one decode_attention
+              per block attending a cache and step (whisper: self and
+              cross), none for xlstm; finite logits, tokens in range, the
+              cache lengths. Prefill ms, ms per decode step, tokens/s,
+              peak memory, then where one prefill and one decode step
+              spend their device time (xlstm: also one mLSTM's and one
+              sLSTM's host ms); then granite-moe-3b, internvl2-1b and
+              whisper-medium in float32 at full width, the kernel path
+              against the plain path: the prefill logits and the first
+              decode step's within rel 1e-3 of max|logits|;
+  8e. serve_edge  examples/torch_serve_edge.py on the card (120 requests
+              at 20/s, FELARE routing qwen1.5-0.5b and whisper-medium
+              requests over four machine groups): its real prefill calls,
+              and flash launches equal to their attention blocks;
   9. main     the flat paper-scale sweep (paper 4x4 system, rates 2-8, 30
               replicates of 2000 tasks) with ELARE, FELARE and MM on the
               fused map kernels and ELARE on the phase1_map kernel; the
@@ -438,6 +469,24 @@ SERVE_MAX_SEQ = SERVE_PROMPT + SERVE_NEW
 # temporaries of their init do not fit the card's 80 GB).
 DENSE_SERVE = (("internlm2-1.8b", None), ("phi4-mini-3.8b", None),
                ("command-r-35b", 16))
+# The moe, vlm, audio and ssm families served at their published width
+# like the dense ones (bf16, torch.Generator seed 0, 8 requests, 64 greedy
+# tokens): arch, layers served (None: all), prompt tokens. internvl2-1b
+# prepends its 256 patches to the 1024 tokens; whisper-medium's decoder
+# prompt is 4 tokens over the 1500 frames of its 30-s window, both its
+# caches sized 1500. phi3.5-moe-42b's depth is cut to 16 of its 32
+# layers (21 B parameters, 42 GB in bf16; its 84 GB at full depth do not
+# fit the card's 80 GB).
+FAMILY_SERVE = (("granite-moe-3b-a800m", None, SERVE_PROMPT),
+                ("phi3.5-moe-42b-a6.6b", 16, SERVE_PROMPT),
+                ("internvl2-1b", None, SERVE_PROMPT),
+                ("whisper-medium", None, 4),
+                ("xlstm-125m", None, SERVE_PROMPT))
+AUDIO_FRAMES = 1500
+# the kernel path against the plain path in float32 at full width
+FAMILY_PARITY = ("granite-moe-3b-a800m", "internvl2-1b", "whisper-medium")
+# examples/torch_serve_edge.py at its defaults
+EDGE_REQUESTS, EDGE_RATE = 120, 20.0
 # The serving front: launch/serve.py's stream (its default fleet of four
 # machine groups and four archs) at 400 requests and 1000 requests/s,
 # routed by plain FELARE and ELARE and through the kernels; the map
@@ -473,6 +522,16 @@ FLASH_CASES = (  # B, Sq, Sk, H, Hkv, hd, causal, q_offset, kv_len
     (8, 1024, 1024, 16, 8, 128, True, 0, None),
     (8, 1024, 1024, 24, 8, 128, True, 0, None),
     (8, 1024, 1024, 64, 8, 128, True, 0, None),
+    # the other families' serve shapes: granite-moe-3b g = 3 and
+    # internvl2-1b g = 7 (patches + tokens) at head dim 64, phi3.5-moe g = 4
+    # at 128, whisper-medium's encoder (non-causal 1500 x 1500), decoder
+    # and cross-attention (4 rows over 1500 frames), g = 1 at 64
+    (8, 1024, 1024, 24, 8, 64, True, 0, None),
+    (8, 1280, 1280, 14, 2, 64, True, 0, None),
+    (8, 1024, 1024, 32, 8, 128, True, 0, None),
+    (8, 1500, 1500, 16, 16, 64, False, 0, None),
+    (8, 4, 4, 16, 16, 64, True, 0, None),
+    (8, 4, 1500, 16, 16, 64, False, 0, None),
 )
 DECODE_CASES = (  # B, Sk, H, Hkv, hd
     (2, 256, 4, 4, 64), (2, 512, 8, 2, 64), (2, 1024, 4, 1, 128),
@@ -481,11 +540,19 @@ DECODE_CASES = (  # B, Sk, H, Hkv, hd
     # one head masked)
     (8, SERVE_MAX_SEQ, 16, 8, 128), (8, SERVE_MAX_SEQ, 24, 8, 128),
     (8, SERVE_MAX_SEQ, 64, 8, 128),
+    # the other families': granite-moe-3b g = 3 at 64, phi3.5-moe g = 4 at
+    # 128, internvl2-1b g = 7 (the 8-head instance with one head masked)
+    # over 1344 rows, whisper-medium's decoder self-attention over a
+    # 1500-row cache
+    (8, SERVE_MAX_SEQ, 24, 8, 64), (8, SERVE_MAX_SEQ, 32, 8, 128),
+    (8, 1344, 14, 2, 64), (8, AUDIO_FRAMES, 16, 16, 64),
 )
 # Decode at the boundaries of the kernel's split of the cache over 8 blocks
 # (chunks of ceil(Sk / 8) keys rounded up to 8), 8 query heads per kv head.
 DECODE_SPLIT_CASES = (  # B, Sk, H, Hkv, hd
     (8, SERVE_MAX_SEQ, 16, 2, 80), (8, 4096, 16, 2, 128),
+    # whisper-medium's cross cache, all 1500 rows valid among the others
+    (8, AUDIO_FRAMES, 16, 16, 64),
 )
 # Decode under GQA, timed: B, Sk, kv_len, Hkv, hd and the query heads per
 # kv head.
@@ -2170,15 +2237,17 @@ def serve_prompt():
     return {"tokens": torch.as_tensor(toks)}
 
 
-def device_split(fn) -> dict:
+def device_split(fn, host_ops: bool = True) -> dict:
     """Device time of one call of ``fn`` by kernel, from torch.profiler:
-    busy ms, the call's wall ms, and the largest kernels."""
+    busy ms, the call's wall ms, and the largest kernels. ``host_ops=
+    False`` records the device's activity alone (a call of 100,000
+    launches then takes seconds, not a minute, to digest)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host_ops
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2532,6 +2601,274 @@ def run_dense_serve(device) -> dict:
         del params, c2
         torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------
+# The moe, vlm, audio and ssm families at full width, and the edge example
+# --------------------------------------------------------------------------
+def family_batch(cfg, prompt: int) -> dict:
+    """8 requests from numpy seed 0, drawn as examples/serve_edge.py draws
+    a request: the tokens, then the frames (audio) or patches (vlm) at
+    0.1 N(0, 1)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (SERVE_BATCH, prompt)))}
+    extra = {"audio": ("frames", AUDIO_FRAMES),
+             "vlm": ("patches", cfg.n_patches)}.get(cfg.family)
+    if extra is not None:
+        batch[extra[0]] = torch.as_tensor(rng.standard_normal(
+            (SERVE_BATCH, extra[1], cfg.d_model)), dtype=torch.float32) * 0.1
+    return batch
+
+
+def family_plan(cfg, prompt: int) -> tuple:
+    """(max_seq, the cache length after the prompt and SERVE_NEW steps,
+    the launches of one prefill and SERVE_NEW steps by attention shape):
+    one flash launch per attention block and prefill (an audio model's
+    encoder, decoder and cross blocks), one decode launch per block
+    attending a cache and step."""
+    L, name = cfg.n_layers, cfg.name
+    if cfg.family == "ssm":
+        return prompt + SERVE_NEW, prompt + SERVE_NEW, {}
+    if cfg.family == "audio":
+        return AUDIO_FRAMES, prompt + SERVE_NEW, {
+            f"{name} encoder": {"flash_attention": cfg.encoder_layers},
+            f"{name} decoder": {"flash_attention": L,
+                                "decode_attention": L * SERVE_NEW},
+            f"{name} cross": {"flash_attention": L,
+                              "decode_attention": L * SERVE_NEW}}
+    ctx = prompt + (cfg.n_patches if cfg.family == "vlm" else 0)
+    return ctx + SERVE_NEW, ctx + SERVE_NEW, {name: {
+        "flash_attention": L, "decode_attention": L * SERVE_NEW}}
+
+
+def xlstm_layer_ms(cfg, params, batch) -> dict:
+    """Host ms of the first superblock's mLSTM and sLSTM over the prompt
+    (CUDA events around each, after a warm-up call): the sLSTM runs one
+    cell per token."""
+    import torch
+
+    from repro_torch.models import layers as ll
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import xlstm
+
+    lp = tf._layer(params["blocks"], 0)
+    x = ll.embed_apply(params["embed"], batch["tokens"].to(
+        params["embed"]["tok"].device), cfg.act_dtype)
+    out = {}
+    with torch.no_grad():
+        for part, fn in (("mlstm", xlstm.mlstm_apply),
+                         ("slstm", xlstm.slstm_apply)):
+            fn(cfg, lp[part], x)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn(cfg, lp[part], x)
+            ev[1].record()
+            torch.cuda.synchronize()
+            out[f"{part}_ms_per_layer"] = ev[0].elapsed_time(ev[1])
+    return out
+
+
+def family_parity(device, cfg, params_bf16, batch, max_seq: int) -> None:
+    """The kernel path against the plain path on the card in float32 at
+    full width (the bf16 weights upcast, exactly): the prefill logits and
+    the first decode step's within rel 1e-3 of max|logits|."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.train import make_serve_steps
+
+    cfg32 = cfg.scaled(dtype="float32", param_dtype="float32")
+    params32 = transformer.tree_map(lambda t: t.float(), params_bf16)
+    outs, tok = {}, None
+    for label, c in (("kernel", cfg32),
+                     ("plain", cfg32.scaled(attn_impl="plain"))):
+        pre, dec = make_serve_steps(c, device)
+        logits, cache = pre(params32, batch, max_seq=max_seq)
+        if tok is None:
+            tok = logits.argmax(-1)
+        step, _ = dec(params32, cache, tok)
+        outs[label] = (logits, step)
+        del cache
+    rel, finite = {}, True
+    for i, name in enumerate(("prefill", "decode")):
+        k, p = outs["kernel"][i], outs["plain"][i]
+        finite = finite and bool(torch.isfinite(k).all())
+        rel[name] = float((k - p).abs().max() / p.abs().max())
+    same = (outs["kernel"][0].argmax(-1) == outs["plain"][0].argmax(-1))
+    emit("serve_families_parity", arch=cfg.name,
+         float32_rel_err_over_max=rel,
+         first_token_agree=int(same.sum()), rows=SERVE_BATCH,
+         float32_params_bytes=sum(t.numel() * 4 for t in _leaves(params32)))
+    require(finite, f"serve_families_parity {cfg.name}: non-finite logits")
+    for name, err in rel.items():
+        require(err <= 1e-3, f"serve_families_parity {cfg.name} {name}: "
+                             f"rel err {err}")
+
+
+def run_family_serve(device) -> tuple:
+    """Each row of FAMILY_SERVE served through ``make_serve_steps`` on the
+    kernels, as the dense configs are; the attention families' float32
+    parity (FAMILY_PARITY). Returns (the launch counts of the timed runs
+    summed, the launches by attention shape)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.train import make_serve_steps
+
+    total, by_shape = {}, {}
+    for arch, n_layers, prompt in FAMILY_SERVE:
+        cfg = get_config(arch)
+        full_layers = cfg.n_layers
+        if n_layers is not None:
+            cfg = cfg.scaled(n_layers=n_layers)
+        require(cfg.attn_impl == "kernel", "the serve path must run the "
+                                           "kernels")
+        gen = torch.Generator(device=device).manual_seed(0)
+        t0 = time.perf_counter()
+        params = transformer.init(cfg, gen, device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(int(t.numel()) for t in _leaves(params))
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in _leaves(params))
+        batch = family_batch(cfg, prompt)
+        max_seq, final_len, shapes = family_plan(cfg, prompt)
+        prefill_step, decode_step = make_serve_steps(cfg, device=device)
+        logits, cache = prefill_step(params, batch, max_seq=max_seq)
+        decode_step(params, cache, logits.argmax(-1))        # warm-up
+        del logits, cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base_mem = torch.cuda.memory_allocated(device)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        reset_counts()
+        t0 = time.perf_counter()
+        ev[0].record()
+        logits, cache = prefill_step(params, batch, max_seq=max_seq)
+        ev[1].record()
+        torch.cuda.synchronize()
+        prefill_host_s = time.perf_counter() - t0
+        finite = torch.isfinite(logits).all()
+        gen_toks = []
+        for _ in range(SERVE_NEW):
+            tok = logits.argmax(-1)
+            gen_toks.append(tok)
+            logits, cache = decode_step(params, cache, tok)
+            finite = finite & torch.isfinite(logits).all()
+        ev[2].record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(device)
+        prefill_ms = ev[0].elapsed_time(ev[1])
+        decode_ms = ev[1].elapsed_time(ev[2])
+        gen_toks = torch.cat(gen_toks, 1)
+        expect = {k: sum(s.get(k, 0) for s in shapes.values())
+                  for k in ("flash_attention", "decode_attention")}
+        expect.update({"ssd_scan_tc": 0, "ssd_scan": 0})
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in _leaves(cache))
+        lens = {k: cache[k].tolist() for k in ("len", "xlen") if k in cache}
+        emit("serve_families", arch=arch, family=cfg.family,
+             layers=cfg.n_layers, published_layers=full_layers,
+             encoder_layers=cfg.encoder_layers or None,
+             cut=None if n_layers is None else
+             f"depth {n_layers} of {full_layers} layers, full width",
+             heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+             experts=cfg.n_experts or None,
+             experts_per_token=cfg.experts_per_token or None,
+             params=n_params, weight_bytes=weight_bytes,
+             init_seconds=init_s, batch=SERVE_BATCH, prompt=prompt,
+             inputs={k: list(v.shape) for k, v in batch.items()},
+             max_seq=max_seq, new_tokens=SERVE_NEW,
+             launches={k: counts[k] for k in expect}, expected=expect,
+             prefill_ms=prefill_ms, prefill_host_ms=prefill_host_s * 1e3,
+             decode_ms_per_step=decode_ms / SERVE_NEW,
+             prefill_tokens_per_s=SERVE_BATCH * (final_len - SERVE_NEW)
+             / prefill_ms * 1e3,
+             decode_tokens_per_s=SERVE_BATCH * SERVE_NEW / decode_ms * 1e3,
+             end_to_end_ms=prefill_ms + decode_ms,
+             peak_memory_bytes=peak, memory_before_bytes=base_mem,
+             cache_bytes=cache_bytes, cache_lengths=lens,
+             first_tokens=gen_toks[0, :8].tolist())
+        require(bool(finite), f"serve_families {arch}: non-finite logits")
+        require(tuple(gen_toks.shape) == (SERVE_BATCH, SERVE_NEW)
+                and int(gen_toks.min()) >= 0
+                and int(gen_toks.max()) < cfg.vocab_size,
+                f"serve_families {arch}: tokens out of range")
+        require(lens["len"] == [final_len] * SERVE_BATCH,
+                f"serve_families {arch}: cache length {lens['len']}")
+        if cfg.family == "audio":
+            require(lens["xlen"] == [AUDIO_FRAMES] * SERVE_BATCH,
+                    f"serve_families {arch}: cross length {lens['xlen']}")
+        for k, v in expect.items():
+            require(counts[k] == v, f"serve_families {arch}: {k}: "
+                                    f"{counts[k]} launches, {v} expected")
+        del cache, logits
+        split = {"prefill": device_split(lambda: prefill_step(
+            params, batch, max_seq=max_seq), cfg.family != "ssm")}
+        _, c2 = prefill_step(params, batch, max_seq=max_seq)
+        tok = gen_toks[:, :1].contiguous()
+        split["decode_step"] = device_split(
+            lambda: decode_step(params, c2, tok))
+        if cfg.family == "ssm":
+            split["layers"] = xlstm_layer_ms(cfg, params, batch)
+        emit("serve_families_profile", arch=arch, **split)
+        del c2
+        if arch in FAMILY_PARITY:
+            family_parity(device, cfg, params, batch, max_seq)
+        for k in expect:
+            total[k] = total.get(k, 0) + counts[k]
+        by_shape.update(shapes)
+        del params
+        torch.cuda.empty_cache()
+    return total, by_shape
+
+
+def run_serve_edge(device) -> dict:
+    """examples/torch_serve_edge.py on the card (FELARE routing qwen1.5-0.5b
+    and whisper-medium requests over four machine groups, executing every
+    started request): its real prefill calls, flash launches equal to the
+    calls' attention blocks. Returns its launch counts."""
+    import importlib.util
+
+    from repro_torch.configs import get_smoke_config
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_edge", ROOT / "examples" / "torch_serve_edge.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = example.serve(EDGE_REQUESTS, EDGE_RATE, device=device)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    blocks = []
+    for arch in example.ARCHS:
+        cfg = get_smoke_config(arch)
+        blocks.append(cfg.encoder_layers + 2 * cfg.n_layers
+                      if cfg.family == "audio" else cfg.n_layers)
+    expect = {"flash_attention": sum(c * b for c, b in zip(
+        out["prefill_calls"], blocks)), "decode_attention": 0}
+    m = out["metrics"]
+    emit("serve_edge", device=out["device"], requests=EDGE_REQUESTS,
+         rate=EDGE_RATE, archs=list(example.ARCHS),
+         executed=out["executed"], prefill_calls=out["prefill_calls"],
+         base_latency_ms=[x * 1e3 for x in out["base_latency_s"]],
+         completion=m["collective_completion_rate"],
+         completion_by_type=m["completion_rate_by_type"].tolist(),
+         jain=m["jain_fairness"], energy=float(m["energy"]),
+         seconds=seconds, launches={k: counts[k] for k in expect},
+         expected=expect)
+    require(out["executed"] > 0, "serve_edge: no request was executed")
+    for k, v in expect.items():
+        require(counts[k] == v, f"serve_edge: {k}: {counts[k]} launches, "
+                                f"{v} expected")
+    return {k: counts[k] for k in expect}
 
 
 # --------------------------------------------------------------------------
@@ -3237,57 +3574,88 @@ def time_model_kernels(device, errs: dict) -> list:
     return rows
 
 
-def time_dense_attention(device) -> dict:
-    """Flash and decode attention at the dense configs' serve shapes (bf16,
-    B = 8, 1024 prompt tokens, decode against 1056 of 1088 cached rows, 8
-    kv heads of 128, g = 2, 3 and 8): device and eager times of the
-    kernel, its plain version and one ``scaled_dot_product_attention``
-    call, and the bound: {kernel: {arch: times}}."""
+def attention_shapes(which: str) -> dict:
+    """The attention shapes of the dense configs' serve paths
+    (``which="front"``) or of the other families' (``"families"``), B =
+    8, bf16: {label: (H, Hkv, hd, flash (Sq, Sk, causal) or None, decode
+    (Sk, kv_len) or None)}. Decode is timed against the cache as it is
+    half-way through the 64 generated tokens."""
+    from repro_torch.configs import get_config
+
+    mid = SERVE_NEW // 2
+    shapes = {}
+    for arch, _ in DENSE_SERVE if which == "front" else ():
+        cfg = get_config(arch)
+        shapes[arch] = (cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                        (SERVE_PROMPT, SERVE_PROMPT, True),
+                        (SERVE_MAX_SEQ, SERVE_PROMPT + mid))
+    for arch, _, prompt in FAMILY_SERVE if which == "families" else ():
+        cfg = get_config(arch)
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+        if cfg.family == "audio":
+            shapes[f"{arch} encoder"] = heads + (
+                (AUDIO_FRAMES, AUDIO_FRAMES, False), None)
+            shapes[f"{arch} decoder"] = heads + (
+                (prompt, prompt, True), (AUDIO_FRAMES, prompt + mid))
+            shapes[f"{arch} cross"] = heads + (
+                (prompt, AUDIO_FRAMES, False), (AUDIO_FRAMES, AUDIO_FRAMES))
+        elif cfg.family != "ssm":
+            ctx = prompt + (cfg.n_patches if cfg.family == "vlm" else 0)
+            shapes[arch] = heads + ((ctx, ctx, True),
+                                    (ctx + SERVE_NEW, ctx + mid))
+    return shapes
+
+
+def time_attention_shapes(device, which: str) -> dict:
+    """Flash and decode attention at :func:`attention_shapes`: device and
+    eager times of the kernel, its plain version and one
+    ``scaled_dot_product_attention`` call, and the bound from the bytes
+    and operations of these inputs: {kernel: {label: times}}."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention, flash_attention
 
     gen = torch.Generator(device=device).manual_seed(22)
-    bf16 = torch.bfloat16
-    B, S, Sk = SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_SEQ
-    kv = SERVE_PROMPT + SERVE_NEW // 2
+    bf16, B = torch.bfloat16, SERVE_BATCH
     by_shape = {"flash_attention": {}, "decode_attention": {}}
-    for arch, _ in DENSE_SERVE:
-        cfg = get_config(arch)
-        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        q = card_normal(gen, (B, S, H, hd), bf16)
-        k, v = (card_normal(gen, (B, S, Hkv, hd), bf16) for _ in range(2))
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        q1 = card_normal(gen, (B, 1, H, hd), bf16)
-        ck, cv = (card_normal(gen, (B, Sk, Hkv, hd), bf16) for _ in range(2))
-        kv_len = torch.full((B,), kv, dtype=torch.int32, device=device)
-        q1t, ckt, cvt = (t.transpose(1, 2).contiguous()
-                         for t in (q1, ck, cv))
-        mask = (torch.arange(Sk, device=device)
-                < kv_len[:, None])[:, None, None]
-        flash_ops = 4 * B * H * hd * S * (S + 1) // 2
-        decode_ops = 4 * B * H * kv * hd
-        table = {
-            "flash_attention": (
-                lambda: flash_attention.flash_attention(q, k, v,
-                                                        causal=True),
-                lambda: flash_attention.flash_attention_plain(q, k, v,
-                                                              causal=True),
-                lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True),
-                nbytes(q, k, v, q), flash_ops, dict(B=B, S=S)),
-            "decode_attention": (
-                lambda: decode_attention.decode_attention(q1, ck, cv,
-                                                          kv_len),
-                lambda: decode_attention.decode_attention_plain(
-                    q1, ck, cv, kv_len),
-                lambda: F.scaled_dot_product_attention(
-                    q1t, ckt, cvt, attn_mask=mask, enable_gqa=True),
+    for label, (H, Hkv, hd, flash, dec) in attention_shapes(which).items():
+        table = {}
+        if flash is not None:
+            Sq, Sk, causal = flash
+            q = card_normal(gen, (B, Sq, H, hd), bf16)
+            k, v = (card_normal(gen, (B, Sk, Hkv, hd), bf16)
+                    for _ in range(2))
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+            table["flash_attention"] = (
+                partial(flash_attention.flash_attention, q, k, v,
+                        causal=causal),
+                partial(flash_attention.flash_attention_plain, q, k, v,
+                        causal=causal),
+                partial(F.scaled_dot_product_attention, qt, kt, vt,
+                        is_causal=causal, enable_gqa=True),
+                nbytes(q, k, v, q), 4 * B * H * hd * pairs,
+                dict(B=B, Sq=Sq, Sk=Sk, causal=causal))
+        if dec is not None:
+            Sk, kv = dec
+            q1 = card_normal(gen, (B, 1, H, hd), bf16)
+            ck, cv = (card_normal(gen, (B, Sk, Hkv, hd), bf16)
+                      for _ in range(2))
+            kv_len = torch.full((B,), kv, dtype=torch.int32, device=device)
+            q1t, ckt, cvt = (t.transpose(1, 2).contiguous()
+                             for t in (q1, ck, cv))
+            mask = (torch.arange(Sk, device=device)
+                    < kv_len[:, None])[:, None, None]
+            table["decode_attention"] = (
+                partial(decode_attention.decode_attention, q1, ck, cv,
+                        kv_len),
+                partial(decode_attention.decode_attention_plain, q1, ck, cv,
+                        kv_len),
+                partial(F.scaled_dot_product_attention, q1t, ckt, cvt,
+                        attn_mask=mask, enable_gqa=True),
                 nbytes(q1, q1, kv_len) + 2 * B * Hkv * kv * hd * 2,
-                decode_ops, dict(B=B, Sk=Sk, kv_len=kv)),
-        }
+                4 * B * H * kv * hd, dict(B=B, Sk=Sk, kv_len=kv))
         for name, (kern, plain, lib, moved, ops, shape) in table.items():
             t_bytes = moved / HBM_BYTES_PER_S * 1e3
             t_ops = ops / BF16_OPS_PER_S * 1e3
@@ -3297,20 +3665,22 @@ def time_dense_attention(device) -> dict:
                  "library_ms": device_ms(lib, 20),
                  "bound_ms": max(t_bytes, t_ops),
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-            by_shape[name][arch] = r
-            emit("times", kernel=name, arch=arch, bytes=moved,
+            by_shape[name][label] = r
+            emit("times", kernel=name, shape_of=label, bytes=moved,
                  operations=ops, share_of_bound=r["bound_ms"] / r["ms"],
                  vs_library=r["ms"] / r["library_ms"], **r)
-        del q, k, v, qt, kt, vt, q1, ck, cv, q1t, ckt, cvt
+        del table
+        torch.cuda.empty_cache()
     return by_shape
 
 
 def time_serving_front(args) -> int:
-    """``--serving-front-times``: the kernels at the shapes the serving
-    front gives them, the map kernels at the router's and the attention
-    kernels at the dense configs', in a process of its own (see
-    :func:`add_serving_front_times`); its last line is
-    ``{"serving_front_times": {kernel: {shape: times}}}``."""
+    """``--serving-front-times front``: the kernels at the shapes the
+    serving front gives them, the map kernels at the router's and the
+    attention kernels at the dense configs' serve shapes; ``families``:
+    the attention kernels at the other families' serve shapes. Each in a
+    process of its own (see :func:`add_serving_front_times`); its last
+    line is ``{"serving_front_times": {kernel: {shape: times}}}``."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3318,37 +3688,45 @@ def time_serving_front(args) -> int:
     require(torch.cuda.is_available(), "no CUDA device in the timing "
                                        "process")
     device = torch.device("cuda")
-    out = {**time_map_kernels(device, ("router",)),
-           **time_dense_attention(device)}
+    which = args.serving_front_times
+    out = time_attention_shapes(device, which)
+    if which == "front":
+        out.update(time_map_kernels(device, ("router",)))
     print(json.dumps({"serving_front_times": out}), flush=True)
     return 0
 
 
 def add_serving_front_times(rows) -> None:
-    """Time the serving front's shapes in a fresh process and add them to
-    the rows' ``by_shape`` (the attention rows first get zamba2-2.7b's,
-    their top-level numbers). A fresh process, because torch.profiler
-    loses device records once a process has opened many profiling
-    windows: with these windows in the main process, the profile phase
-    after them read fewer kernels per iteration on paper_x2 than on
-    paper_x8 (403.4 against 411.6), and with the profile moved before
-    them the first timing window read no record."""
+    """Time the serving front's and the other families' shapes, each set
+    in a fresh process, and add them to the rows' ``by_shape`` (the
+    attention rows first get zamba2-2.7b's, their top-level numbers).
+    Fresh processes, because torch.profiler loses device records once a
+    process has opened many profiling windows: with these windows in the
+    main process, the profile phase after them read fewer kernels per
+    iteration on paper_x2 than on paper_x8 (403.4 against 411.6), with
+    the profile moved before them the first timing window read no
+    record, and after the families' serve profiles a first window read
+    none either."""
     from repro_torch.configs import get_config
 
-    proc = subprocess.run(
-        [sys.executable, str(ROOT / "chip_smoke.py"),
-         "--serving-front-times"],
-        stdout=subprocess.PIPE, text=True,
-        env=dict(os.environ, CHIP_SMOKE_T0=repr(_T0)))
-    extra = None
-    for line in proc.stdout.splitlines():
-        if line.startswith('{"serving_front_times"'):
-            extra = json.loads(line)["serving_front_times"]
-        else:
-            print(line, flush=True)
-    require(proc.returncode == 0 and extra is not None,
-            f"the serving front's timing process failed "
-            f"(exit code {proc.returncode})")
+    extra = {}
+    for which in ("front", "families"):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--serving-front-times", which],
+            stdout=subprocess.PIPE, text=True,
+            env=dict(os.environ, CHIP_SMOKE_T0=repr(_T0)))
+        got = None
+        for line in proc.stdout.splitlines():
+            if line.startswith('{"serving_front_times"'):
+                got = json.loads(line)["serving_front_times"]
+            else:
+                print(line, flush=True)
+        require(proc.returncode == 0 and got is not None,
+                f"the {which} timing process failed (exit code "
+                f"{proc.returncode})")
+        for name, shapes in got.items():
+            extra.setdefault(name, {}).update(shapes)
     by_name = {r["name"]: r for r in rows}
     zamba = get_config(SERVE_ARCH)
     for name in ("flash_attention", "decode_attention"):
@@ -3370,8 +3748,14 @@ def add_serving_front_times(rows) -> None:
 # from the same seed, zeroes the launch counts just before each run and
 # reads them just after, and returns them by path. Longest first. Each
 # runs its CPU subsets on one thread: six processes share 8 cores, and
-# the subsets' threads slowed the others' launches.
-GROUPS = ("fed", "fleets", "scenarios", "observe", "flat", "network")
+# the subsets' threads slowed the others' launches. The families' serving
+# (phases 8d and 8e) runs in a process of its own before them, alone on
+# the card: beside the six sweeps its prefills and decode steps took 4-10
+# x their time alone, the card time-sliced between the processes
+# (granite-moe-3b's decode step 843.9 ms against 78.6 ms alone on an
+# NVIDIA H100 80GB HBM3 at 700 W).
+SWEEP_GROUPS = ("fed", "fleets", "scenarios", "observe", "flat", "network")
+GROUPS = ("families",) + SWEEP_GROUPS
 
 
 def metrics_digest(result, heuristic: str) -> str:
@@ -3455,6 +3839,16 @@ def group_scenarios(device, args) -> dict:
     return {"paths": {"scenarios": total}, "by_shape": by_shape}
 
 
+def group_families(device, args) -> dict:
+    """Phases 8d and 8e: the moe, vlm, audio and ssm families served at
+    full width (and the float32 parity of three of them), then the
+    edge-serving example."""
+    families, by_shape = run_family_serve(device)
+    edge = run_serve_edge(device)
+    return {"paths": {"serve_families": families, "serve_edge": edge},
+            "by_shape": by_shape}
+
+
 def group_fleets(device, args) -> dict:
     """Phase 20 on the synthetic federations: mixed_sites and
     federated-skew (paper_x2)."""
@@ -3477,10 +3871,10 @@ def run_group(args) -> int:
     return 0
 
 
-def run_groups(args) -> dict:
-    """Start every group's process at once, pass their lines on as they
-    come, and return their results by group. A group that fails stops
-    the others and fails the run; a group's process dies with this
+def run_groups(args, groups) -> dict:
+    """Start the processes of ``groups`` at once, pass their lines on as
+    they come, and return their results by group. A group that fails
+    stops the others and fails the run; a group's process dies with this
     one."""
     import ctypes
     import signal
@@ -3495,7 +3889,7 @@ def run_groups(args) -> dict:
          "--reps", str(args.reps), "--tasks", str(args.tasks),
          "--fed-reps", str(args.fed_reps)],
         stdout=subprocess.PIPE, text=True, env=env,
-        preexec_fn=die_with_parent) for g in GROUPS}
+        preexec_fn=die_with_parent) for g in groups}
 
     def relay(g, proc):
         for line in proc.stdout:
@@ -3525,8 +3919,8 @@ def run_groups(args) -> dict:
             t.join()
     failed = {g: p.returncode for g, p in procs.items() if p.returncode}
     require(not failed, f"groups failed (exit codes): {failed}")
-    require(set(results) == set(GROUPS),
-            f"groups without a result: {set(GROUPS) - set(results)}")
+    require(set(results) == set(groups),
+            f"groups without a result: {set(groups) - set(results)}")
     return results
 
 
@@ -3545,9 +3939,10 @@ def main(argv=None) -> int:
     ap.add_argument("--group", choices=GROUPS,
                     help="run one group of the sweep phases (the script "
                          "starts them all itself)")
-    ap.add_argument("--serving-front-times", action="store_true",
-                    help="time the kernels at the serving front's shapes "
-                         "(the script starts this process itself)")
+    ap.add_argument("--serving-front-times", choices=("front", "families"),
+                    help="time the kernels at the serving front's or the "
+                         "other families' shapes (the script starts these "
+                         "processes itself)")
     args = ap.parse_args(argv)
     if args.group:
         return run_group(args)
@@ -3671,12 +4066,14 @@ def main(argv=None) -> int:
               "300 tasks; its sweeps run at full width")
     paths = {"flat": {}, "federated": {}, "serve": serve, "observed": {},
              "faults": {}, "network": {}, "scenarios": {},
-             "serve_dense": {}, "router": router}
+             "serve_dense": {}, "router": router, "serve_families": {},
+             "serve_edge": {}}
     for counts in dense.values():
         for k, v in counts.items():
             paths["serve_dense"][k] = paths["serve_dense"].get(k, 0) + v
     shape_counts = {SERVE_ARCH: serve, "router": router, **dense}
-    results = run_groups(args)
+    results = run_groups(args, ("families",))
+    results.update(run_groups(args, SWEEP_GROUPS))
     # the flat FELARE sweep of phase 9 and the unobserved one of phase 13
     # (whose Metrics phases 13 and 15 hold against the observed and plain
     # runs) ran in two processes: the same bits

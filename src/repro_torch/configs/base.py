@@ -9,7 +9,10 @@ values:
     hand-written CUDA kernels on CUDA tensors and run their plain
     versions on CPU tensors;
   * ``"plain"``: the plain PyTorch path, the counterpart of the
-    reference's ``sdpa_xla`` and ``ssd_chunked``.
+    reference's ``sdpa_xla`` and ``ssd_chunked``;
+  * ``"plain_chunked"`` (``attn_impl`` only): the plain attention taken
+    1024 query rows at a time, the counterpart of the reference's
+    ``"xla_chunked"``.
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import dataclasses
 
 import torch
 
-IMPLS = ("kernel", "plain")
+ATTN_IMPLS = ("kernel", "plain", "plain_chunked")
+SSM_IMPLS = ("kernel", "plain")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +63,7 @@ class ModelConfig:
     # numerics
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
-    # kernel selection: kernel | plain
+    # kernel selection: kernel | plain | plain_chunked (attention only)
     attn_impl: str = "kernel"
     ssm_impl: str = "kernel"
     # kept for the reference's signature; the port has no training yet
@@ -67,9 +71,10 @@ class ModelConfig:
     remat: bool = True
 
     def __post_init__(self):
-        for field in ("attn_impl", "ssm_impl"):
-            if getattr(self, field) not in IMPLS:
-                raise ValueError(f"{field} must be one of {IMPLS}, got "
+        for field, impls in (("attn_impl", ATTN_IMPLS),
+                             ("ssm_impl", SSM_IMPLS)):
+            if getattr(self, field) not in impls:
+                raise ValueError(f"{field} must be one of {impls}, got "
                                  f"{getattr(self, field)!r}")
 
     @property

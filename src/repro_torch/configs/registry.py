@@ -1,9 +1,8 @@
 """Architecture registry: arch id -> :class:`ModelConfig` (full + smoke).
 
 Counterpart of ``repro/configs/registry.py``: all ten ids, in the
-reference's order. Every config resolves; a config of a family the port
-does not run yet (moe, ssm, audio, vlm) is data only, and building a
-model from it raises ``NotImplementedError`` (ROADMAP A6b).
+reference's order. Every config resolves, and the port builds, prefills
+and decodes every one of them (all six families).
 """
 from __future__ import annotations
 

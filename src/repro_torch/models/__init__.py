@@ -1,6 +1,6 @@
-"""Model substrate of the port: the dense and hybrid families' init,
-forward, prefill and decode (counterpart of ``repro/models``)."""
-from repro_torch.models import layers, ssm, transformer
+"""Model substrate of the port: every family's init, forward, prefill and
+decode (counterpart of ``repro/models``)."""
+from repro_torch.models import layers, moe, ssm, transformer, xlstm
 from repro_torch.models.transformer import (
     decode_step,
     forward,
@@ -11,5 +11,6 @@ from repro_torch.models.transformer import (
     prefill,
 )
 
-__all__ = ["layers", "ssm", "transformer", "init", "forward", "prefill",
-           "decode_step", "init_cache", "param_shapes", "param_spec"]
+__all__ = ["layers", "moe", "ssm", "transformer", "xlstm", "init",
+           "forward", "prefill", "decode_step", "init_cache", "param_shapes",
+           "param_spec"]

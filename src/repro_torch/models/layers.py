@@ -87,14 +87,15 @@ def rope(x, positions, theta: float):
 # --------------------------------------------------------------------------
 # Attention (GQA), pluggable impl
 # --------------------------------------------------------------------------
-def attn_init(cfg: ModelConfig):
-    """QKVO projections (self-attention; cross-attention comes with the
-    audio family, ROADMAP A6b)."""
+def attn_init(cfg: ModelConfig, d_kv_src: int | None = None):
+    """QKVO projections. ``d_kv_src`` != None: the width of a
+    cross-attention's K/V source."""
     d, hd = cfg.d_model, cfg.hd
+    dk = d_kv_src if d_kv_src is not None else d
     p = {
         "wq": _dense_init((d, cfg.n_heads * hd), cfg.p_dtype),
-        "wk": _dense_init((d, cfg.n_kv_heads * hd), cfg.p_dtype),
-        "wv": _dense_init((d, cfg.n_kv_heads * hd), cfg.p_dtype),
+        "wk": _dense_init((dk, cfg.n_kv_heads * hd), cfg.p_dtype),
+        "wv": _dense_init((dk, cfg.n_kv_heads * hd), cfg.p_dtype),
         "wo": _dense_init((cfg.n_heads * hd, d), cfg.p_dtype),
     }
     if cfg.qkv_bias:
@@ -116,12 +117,16 @@ def _proj(x, w, b=None):
     return y
 
 
-def qkv(cfg: ModelConfig, p, x):
-    """Project to (B, S, H, hd) / (B, S, Hkv, hd)."""
+def qkv(cfg: ModelConfig, p, x, kv_src=None):
+    """Project to (B, S, H, hd) / (B, Skv, Hkv, hd); K and V from
+    ``kv_src`` when given (cross-attention), else from x."""
     B = x.shape[0]
+    kv_src = x if kv_src is None else kv_src
     q = _proj(x, p["wq"], p.get("bq")).reshape(B, -1, cfg.n_heads, cfg.hd)
-    k = _proj(x, p["wk"], p.get("bk")).reshape(B, -1, cfg.n_kv_heads, cfg.hd)
-    v = _proj(x, p["wv"], p.get("bv")).reshape(B, -1, cfg.n_kv_heads, cfg.hd)
+    k = _proj(kv_src, p["wk"], p.get("bk")).reshape(
+        B, -1, cfg.n_kv_heads, cfg.hd)
+    v = _proj(kv_src, p["wv"], p.get("bv")).reshape(
+        B, -1, cfg.n_kv_heads, cfg.hd)
     return q, k, v
 
 
@@ -154,24 +159,48 @@ def sdpa_plain(q, k, v, *, causal: bool, kv_len=None, q_offset=0):
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def sdpa_plain_chunked(q, k, v, *, causal, kv_len=None, q_offset=0,
+                       block: int = 1024):
+    """Query-blockwise :func:`sdpa_plain` (the reference's
+    ``sdpa_xla_chunked``): the same values, with the scores of at most
+    ``block`` query rows alive at a time. q is padded with zero rows to a
+    multiple of the block, and the padded rows are cut from the result."""
+    B, Sq, H, hd = q.shape
+    bs = min(block, Sq)
+    pad = (-Sq) % bs
+    qp = F.pad(q, (0, 0, 0, 0, 0, pad)) if pad else q
+    outs = [sdpa_plain(qp[:, i:i + bs], k, v, causal=causal, kv_len=kv_len,
+                       q_offset=q_offset + i)
+            for i in range(0, qp.shape[1], bs)]
+    return torch.cat(outs, dim=1)[:, :Sq]
+
+
 def sdpa(cfg: ModelConfig, q, k, v, *, causal, kv_len=None, q_offset=0):
-    """Implementation dispatch: ``plain`` | ``kernel`` (decode attention
-    for one query row against a cache, flash attention otherwise).
-    ``sdpa_xla_chunked`` is not ported yet (ROADMAP A6b)."""
+    """Implementation dispatch: ``plain`` | ``plain_chunked`` | ``kernel``
+    (decode attention for one query row against a cache, flash attention
+    otherwise)."""
     if cfg.attn_impl == "plain":
         return sdpa_plain(q, k, v, causal=causal, kv_len=kv_len,
                           q_offset=q_offset)
+    if cfg.attn_impl == "plain_chunked":
+        return sdpa_plain_chunked(q, k, v, causal=causal, kv_len=kv_len,
+                                  q_offset=q_offset)
     if q.shape[1] == 1 and kv_len is not None:  # decode
         return dec_ops.decode_attention(q, k, v, kv_len)
     return flash_ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len,
                                      q_offset=q_offset)
 
 
-def attn_apply(cfg: ModelConfig, p, x, positions, *, causal=True):
-    """Full-sequence attention (prefill). Returns (out, (k, v))."""
-    q, k, v = qkv(cfg, p, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+def attn_apply(cfg: ModelConfig, p, x, positions, *, causal=True,
+               kv_src=None, kv_positions=None, use_rope=True):
+    """Full-sequence attention (prefill, encoder, cross). Returns (out,
+    (k, v)). Cross-attention (``kv_src``) ropes q with ``positions`` and k
+    with ``kv_positions``, as the reference does."""
+    q, k, v = qkv(cfg, p, x, kv_src)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        kp = positions if kv_positions is None else kv_positions
+        k = rope(k, kp, cfg.rope_theta)
     out = sdpa(cfg, q, k, v, causal=causal)
     B, S = x.shape[:2]
     return _proj(out.reshape(B, S, -1), p["wo"]), (k, v)
@@ -189,7 +218,8 @@ def _write_row(cache, idx, row):
                      torch.where(ok, row.to(cache.dtype), cache[bidx, at]))
 
 
-def attn_decode(cfg: ModelConfig, p, x, pos, ck, cv, cache_len):
+def attn_decode(cfg: ModelConfig, p, x, pos, ck, cv, cache_len, *,
+                use_rope=True, cross=False):
     """Single-token decode against a KV cache.
 
     x: (B, 1, d); ck/cv: (B, S_max, Hkv, hd); cache_len: (B,) ints.
@@ -197,14 +227,23 @@ def attn_decode(cfg: ModelConfig, p, x, pos, ck, cv, cache_len):
     returns new arrays, the new row is written into ``ck`` and ``cv`` in
     place (one (Hkv, hd) row per batch element); a write at or past
     ``S_max`` is a no-op, never a corruption and never an error.
+    ``cross``: the cache is the encoder's K/V, read at ``cache_len`` rows
+    and never written; only q is projected (and roped).
     """
     B = x.shape[0]
-    q, k1, v1 = qkv(cfg, p, x)
-    q = rope(q, pos, cfg.rope_theta)
-    k1 = rope(k1, pos, cfg.rope_theta)
-    _write_row(ck, cache_len, k1[:, 0])
-    _write_row(cv, cache_len, v1[:, 0])
-    new_len = cache_len + 1
+    if cross:
+        q = _proj(x, p["wq"], p.get("bq")).reshape(B, 1, cfg.n_heads, cfg.hd)
+        if use_rope:
+            q = rope(q, pos, cfg.rope_theta)
+        new_len = cache_len
+    else:
+        q, k1, v1 = qkv(cfg, p, x)
+        if use_rope:
+            q = rope(q, pos, cfg.rope_theta)
+            k1 = rope(k1, pos, cfg.rope_theta)
+        _write_row(ck, cache_len, k1[:, 0])
+        _write_row(cv, cache_len, v1[:, 0])
+        new_len = cache_len + 1
     out = sdpa(cfg, q, ck, cv, causal=False, kv_len=new_len)
     return _proj(out.reshape(B, 1, -1), p["wo"]), ck, cv, new_len
 

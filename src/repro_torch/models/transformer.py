@@ -1,21 +1,25 @@
 """Model stack: ``init`` / ``forward`` / ``init_cache`` / ``prefill`` /
 ``decode_step``, dispatching on ``cfg.family``.
 
-Counterpart of ``repro/models/transformer.py`` for two families:
+Counterpart of ``repro/models/transformer.py``, all six families:
 
-  dense   : pre-norm GQA transformer
-  hybrid  : Zamba2 — Mamba2 backbone + one shared attention block invoked
-            every ``attn_every`` layers (per-invocation norms)
+  dense | vlm : pre-norm GQA transformer (a VLM prepends its stub patch
+                embeddings to the tokens)
+  moe         : GQA attention + top-k expert MLP
+  ssm         : xLSTM, (mLSTM, sLSTM) superblocks
+  hybrid      : Zamba2, a Mamba2 backbone + one shared attention block
+                invoked every ``attn_every`` layers (per-invocation norms)
+  audio       : Whisper backbone, a bidirectional encoder over stub frame
+                embeddings + a causal decoder with cross-attention
 
-The others (moe, ssm, audio, vlm) raise ``NotImplementedError`` until
-they are ported (ROADMAP A6b). Parameters are nested dicts of tensors with
-the reference's keys, per-layer leaves stacked on a leading (L, ...) axis;
-the layer loops are Python loops over that axis. ``forward`` and
-``prefill`` return final hidden states; the LM head is applied by the
-caller (``repro_torch.train.steps``) or by ``decode_step``.
+Parameters are nested dicts of tensors with the reference's keys,
+per-layer leaves stacked on a leading (L, ...) axis; the layer loops are
+Python loops over that axis. ``forward`` and ``prefill`` return final
+hidden states; the LM head is applied by the caller
+(``repro_torch.train.steps``) or by ``decode_step``.
 
-Decode updates the cache in place (KV rows, SSM and conv states) and
-returns it with ``len`` advanced; the reference returns new arrays.
+Decode updates the cache in place (KV rows, SSM, conv and xLSTM states)
+and returns it with ``len`` advanced; the reference returns new arrays.
 """
 from __future__ import annotations
 
@@ -24,17 +28,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as ll
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import Leaf
 
-FAMILIES = ("dense", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
+ATTN_FAMILIES = ("dense", "vlm", "moe")    # one attention block per layer
 
 
 def _check_family(cfg: ModelConfig) -> str:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP A6b); the "
-            f"port runs {FAMILIES}")
+        raise ValueError(f"unknown family {cfg.family!r}; the port runs "
+                         f"{FAMILIES}")
     return cfg.family
 
 
@@ -53,9 +59,17 @@ def _layer(tree, i: int):
 # ==========================================================================
 # init
 # ==========================================================================
-def _attn_block_init(cfg):
-    return {"ln1": ll.norm_init(cfg), "attn": ll.attn_init(cfg),
-            "ln2": ll.norm_init(cfg), "mlp": ll.mlp_init(cfg)}
+def _attn_block_init(cfg, cross=False):
+    p = {"ln1": ll.norm_init(cfg), "attn": ll.attn_init(cfg),
+         "ln2": ll.norm_init(cfg)}
+    if cfg.family == "moe":
+        p["moe"] = moe_mod.moe_init(cfg)
+    else:
+        p["mlp"] = ll.mlp_init(cfg)
+    if cross:
+        p["lnx"] = ll.norm_init(cfg)
+        p["xattn"] = ll.attn_init(cfg)
+    return p
 
 
 def _stacked(n: int, spec):
@@ -69,9 +83,16 @@ def param_spec(cfg: ModelConfig):
     reference's init distributions, nothing allocated."""
     fam = _check_family(cfg)
     params = {"embed": ll.embed_init(cfg), "final_norm": ll.norm_init(cfg)}
-    if fam == "dense":
+    if fam in ATTN_FAMILIES:
         params["blocks"] = _stacked(cfg.n_layers, _attn_block_init(cfg))
-    else:
+    elif fam == "ssm":
+        if cfg.n_layers % 2:
+            raise ValueError(f"an xLSTM's n_layers {cfg.n_layers} must be "
+                             f"even: (mLSTM, sLSTM) superblocks")
+        params["blocks"] = _stacked(cfg.n_layers // 2, {
+            "mlstm": xlstm_mod.mlstm_init(cfg),
+            "slstm": xlstm_mod.slstm_init(cfg)})
+    elif fam == "hybrid":
         if cfg.n_layers % cfg.attn_every:
             raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
                              f"attn_every {cfg.attn_every}")
@@ -80,6 +101,12 @@ def param_spec(cfg: ModelConfig):
             "ln": ll.norm_init(cfg), "mamba": ssm_mod.mamba_init(cfg)})
         params["shared_attn"] = _attn_block_init(cfg)
         params["inv_norms"] = Leaf((n_inv, cfg.d_model), cfg.p_dtype, "ones")
+    else:  # audio
+        params["enc_blocks"] = _stacked(cfg.encoder_layers,
+                                        _attn_block_init(cfg))
+        params["blocks"] = _stacked(cfg.n_layers,
+                                    _attn_block_init(cfg, cross=True))
+        params["enc_norm"] = ll.norm_init(cfg)
     return params
 
 
@@ -107,6 +134,10 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, *,
             return torch.ones(lf.shape, dtype=lf.dtype, device=dev)
         if lf.fill == "zeros":
             return torch.zeros(lf.shape, dtype=lf.dtype, device=dev)
+        if lf.fill == "halves":  # last axis: zeros, then ``scale``
+            w = torch.zeros(lf.shape, dtype=lf.dtype, device=dev)
+            w[..., lf.shape[-1] // 2:] = lf.scale
+            return w
         w = torch.empty(lf.shape, dtype=torch.float32, device=dev)
         return w.normal_(generator=gen).mul_(lf.scale).to(lf.dtype)
 
@@ -116,18 +147,38 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, *,
 # ==========================================================================
 # full-sequence forward (prefill body)
 # ==========================================================================
-def _attn_block_apply(cfg, p, x, positions):
-    """Pre-norm attention + MLP block. Returns (x, (k, v))."""
+def _attn_block_apply(cfg, p, x, positions, *, causal=True, enc=None,
+                      enc_positions=None):
+    """Pre-norm attention (+ cross-attention over ``enc``) + MLP or MoE
+    block. Returns (x, (kv, xkv, aux)): the self-attention's (k, v), the
+    cross-attention's (None without ``enc``) and the MoE's aux loss
+    (None without experts)."""
     h, kv = ll.attn_apply(cfg, p["attn"], ll.norm_apply(cfg, p["ln1"], x),
-                          positions)
+                          positions, causal=causal)
     x = x + h
-    x = x + ll.mlp_apply(cfg, p["mlp"], ll.norm_apply(cfg, p["ln2"], x))
-    return x, kv
+    xkv = None
+    if enc is not None:
+        h, xkv = ll.attn_apply(
+            cfg, p["xattn"], ll.norm_apply(cfg, p["lnx"], x), positions,
+            causal=False, kv_src=enc, kv_positions=enc_positions)
+        x = x + h
+    h, aux = _ffn(cfg, p, ll.norm_apply(cfg, p["ln2"], x))
+    return x + h, (kv, xkv, aux)
+
+
+def _ffn(cfg, p, x):
+    """The block's MLP, or its experts: (out, aux or None)."""
+    if cfg.family == "moe":
+        return moe_mod.moe_apply(cfg, p["moe"], x)
+    return ll.mlp_apply(cfg, p["mlp"], x), None
 
 
 def _embed_input(cfg, params, batch):
-    """tokens -> (B, S, d), positions (S,)."""
+    """tokens (+ a VLM's stub patch embeddings) -> (B, S, d), positions
+    (S,)."""
     x = ll.embed_apply(params["embed"], batch["tokens"], cfg.act_dtype)
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(x.device, cfg.act_dtype), x], 1)
     return x, torch.arange(x.shape[1], device=x.device)
 
 
@@ -145,15 +196,40 @@ def _shared_input(cfg, params, x, g: int):
     return x * params["inv_norms"][g][None, None].to(x.dtype)
 
 
+def _encode(cfg, params, frames):
+    """The audio encoder over stub frame embeddings: (enc, positions)."""
+    x = frames.to(cfg.act_dtype)
+    pos = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.encoder_layers):
+        x, _ = _attn_block_apply(cfg, _layer(params["enc_blocks"], i), x, pos,
+                                 causal=False)
+    return ll.norm_apply(cfg, params["enc_norm"], x), pos
+
+
 def forward(cfg: ModelConfig, params, batch):
-    """-> (hidden (B, S, d), aux_loss). Causal LM over the full sequence."""
+    """-> (hidden (B, S, d), aux_loss). Causal LM over the full sequence
+    (an audio model's decoder over its tokens, the encoder's frames
+    attended)."""
     fam = _check_family(cfg)
-    x, positions = _embed_input(cfg, params, batch)
-    if fam == "dense":
-        for i in range(cfg.n_layers):
-            x, _ = _attn_block_apply(cfg, _layer(params["blocks"], i), x,
-                                     positions)
+    if fam == "audio":
+        enc, enc_pos = _encode(cfg, params, batch["frames"])
+        x = ll.embed_apply(params["embed"], batch["tokens"], cfg.act_dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
     else:
+        x, positions = _embed_input(cfg, params, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if fam in ATTN_FAMILIES:
+        for i in range(cfg.n_layers):
+            x, (_, _, a) = _attn_block_apply(
+                cfg, _layer(params["blocks"], i), x, positions)
+            if a is not None:
+                aux = aux + a
+    elif fam == "ssm":
+        for i in range(cfg.n_layers // 2):
+            lp = _layer(params["blocks"], i)
+            x = xlstm_mod.mlstm_apply(cfg, lp["mlstm"], x)
+            x = xlstm_mod.slstm_apply(cfg, lp["slstm"], x)
+    elif fam == "hybrid":
         for i in range(cfg.n_layers):
             x = _mamba_layer(cfg, _layer(params["blocks"], i), x)
             if (i + 1) % cfg.attn_every == 0:
@@ -161,7 +237,11 @@ def forward(cfg: ModelConfig, params, batch):
                 x, _ = _attn_block_apply(cfg, params["shared_attn"],
                                          _shared_input(cfg, params, x, g),
                                          positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:  # audio
+        for i in range(cfg.n_layers):
+            x, _ = _attn_block_apply(cfg, _layer(params["blocks"], i), x,
+                                     positions, enc=enc,
+                                     enc_positions=enc_pos)
     return ll.norm_apply(cfg, params["final_norm"], x), aux
 
 
@@ -169,20 +249,38 @@ def forward(cfg: ModelConfig, params, batch):
 # KV / state caches
 # ==========================================================================
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
-    """Zero-initialized decode cache on ``device`` (``None`` = CUDA)."""
+    """Zero-initialized decode cache on ``device`` (``None`` = CUDA). An
+    audio model's cross cache holds ``max_seq`` encoder rows."""
     fam = _check_family(cfg)
     dev = resolve_device(device)
-    dt = cfg.act_dtype
-    n_kv = cfg.n_layers if fam == "dense" else cfg.n_layers // cfg.attn_every
+    dt, f32 = cfg.act_dtype, torch.float32
+    cache = {"len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if fam == "ssm":
+        nsb, H, d = cfg.n_layers // 2, cfg.n_heads, cfg.d_model
+        di, dh = 2 * d, d // H
+        dk = di // H
+
+        def zeros(*shape, dtype=f32):
+            return torch.zeros((nsb, batch) + shape, dtype=dtype, device=dev)
+        cache["mlstm"] = {"S": zeros(H, dk, dk), "n": zeros(H, dk),
+                          "conv": zeros(3, di, dtype=dt)}
+        cache["slstm"] = {"c": zeros(H, dh), "n": zeros(H, dh),
+                          "h": zeros(H, dh),
+                          "m": torch.full((nsb, batch, H, dh), -1e9,
+                                          dtype=f32, device=dev)}
+        return cache
+    n_kv = cfg.n_layers // cfg.attn_every if fam == "hybrid" else \
+        cfg.n_layers
     kv_shape = (n_kv, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-    cache = {"k": torch.zeros(kv_shape, dtype=dt, device=dev),
-             "v": torch.zeros(kv_shape, dtype=dt, device=dev),
-             "len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    for key in ("k", "v") + (("xk", "xv") if fam == "audio" else ()):
+        cache[key] = torch.zeros(kv_shape, dtype=dt, device=dev)
+    if fam == "audio":
+        cache["xlen"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
     if fam == "hybrid":
         L, N = cfg.n_layers, cfg.ssm_state
         cache["ssm"] = torch.zeros(
-            (L, batch, cfg.ssm_heads, N, cfg.ssm_head_dim),
-            dtype=torch.float32, device=dev)
+            (L, batch, cfg.ssm_heads, N, cfg.ssm_head_dim), dtype=f32,
+            device=dev)
         cache["conv"] = torch.zeros(
             (L, batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * N), dtype=dt,
             device=dev)
@@ -192,23 +290,41 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
 # ==========================================================================
 # prefill
 # ==========================================================================
+def _fits(what: str, n: int, max_seq: int) -> None:
+    if max_seq < n:
+        raise ValueError(f"max_seq {max_seq} is shorter than the {what} {n}")
+
+
 def prefill(cfg: ModelConfig, params, batch, max_seq: int):
     """Process the prompt; return (last hidden (B, 1, d), cache) with the
     cache sized for ``max_seq`` positions. A hybrid prompt's length must
-    be a multiple of ``min(ssm_chunk, S)``."""
+    be a multiple of ``min(ssm_chunk, S)``, an xLSTM's of ``min(128, S)``;
+    an audio model's frames, padded into its cross cache, at most
+    ``max_seq``."""
     fam = _check_family(cfg)
+    if fam == "audio":
+        return _prefill_audio(cfg, params, batch, max_seq)
     x, positions = _embed_input(cfg, params, batch)
     B, S = x.shape[:2]
-    if max_seq < S:
-        raise ValueError(f"max_seq {max_seq} is shorter than the prompt {S}")
+    _fits("prompt", S, max_seq)
     cache = init_cache(cfg, B, max_seq, device=x.device)
-    if fam == "dense":
+    if fam in ATTN_FAMILIES:
         for i in range(cfg.n_layers):
-            x, (k, v) = _attn_block_apply(cfg, _layer(params["blocks"], i), x,
-                                          positions)
+            x, ((k, v), _, _) = _attn_block_apply(
+                cfg, _layer(params["blocks"], i), x, positions)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
-    else:
+    elif fam == "ssm":
+        for i in range(cfg.n_layers // 2):
+            lp = _layer(params["blocks"], i)
+            x, mst = xlstm_mod.mlstm_apply(cfg, lp["mlstm"], x,
+                                           return_state=True)
+            x, sst = xlstm_mod.slstm_apply(cfg, lp["slstm"], x,
+                                           return_state=True)
+            for part, st in (("mlstm", mst), ("slstm", sst)):
+                for key, val in st.items():
+                    cache[part][key][i] = val
+    else:  # hybrid
         for i in range(cfg.n_layers):
             x, stt = _mamba_layer(cfg, _layer(params["blocks"], i), x,
                                   return_state=True)
@@ -216,7 +332,7 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: int):
             cache["conv"][i] = stt["conv"]
             if (i + 1) % cfg.attn_every == 0:
                 g = i // cfg.attn_every
-                x, (k, v) = _attn_block_apply(
+                x, ((k, v), _, _) = _attn_block_apply(
                     cfg, params["shared_attn"],
                     _shared_input(cfg, params, x, g), positions)
                 cache["k"][g, :, :S] = k
@@ -226,15 +342,50 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: int):
     return x[:, -1:], cache
 
 
+def _prefill_audio(cfg, params, batch, max_seq: int):
+    """Encode the frames, run the decoder over its prompt tokens; the
+    cache holds the decoder's K/V and every layer's cross K/V over the
+    frames, both padded to ``max_seq`` rows."""
+    enc, enc_pos = _encode(cfg, params, batch["frames"])
+    x = ll.embed_apply(params["embed"], batch["tokens"], cfg.act_dtype)
+    B, Sd = x.shape[:2]
+    Se = enc.shape[1]
+    _fits("decoder prompt", Sd, max_seq)
+    _fits("encoder frames", Se, max_seq)
+    cache = init_cache(cfg, B, max_seq, device=x.device)
+    dec_pos = torch.arange(Sd, device=x.device)
+    for i in range(cfg.n_layers):
+        x, ((k, v), (xk, xv), _) = _attn_block_apply(
+            cfg, _layer(params["blocks"], i), x, dec_pos, enc=enc,
+            enc_positions=enc_pos)
+        cache["k"][i, :, :Sd] = k
+        cache["v"][i, :, :Sd] = v
+        cache["xk"][i, :, :Se] = xk
+        cache["xv"][i, :, :Se] = xv
+    cache["len"].fill_(Sd)
+    cache["xlen"].fill_(Se)
+    x = ll.norm_apply(cfg, params["final_norm"], x)
+    return x[:, -1:], cache
+
+
 # ==========================================================================
 # decode
 # ==========================================================================
 def _attn_block_decode(cfg, p, x, pos, cache, g: int):
+    """One token through attention block ``g``: self-attention on the
+    cache (written in place), cross-attention on the encoder's cache
+    (audio), then the MLP or the experts."""
     h, _, _, _ = ll.attn_decode(cfg, p["attn"],
                                 ll.norm_apply(cfg, p["ln1"], x), pos,
                                 cache["k"][g], cache["v"][g], cache["len"])
     x = x + h
-    return x + ll.mlp_apply(cfg, p["mlp"], ll.norm_apply(cfg, p["ln2"], x))
+    if "xattn" in p:
+        h, _, _, _ = ll.attn_decode(cfg, p["xattn"],
+                                    ll.norm_apply(cfg, p["lnx"], x), pos,
+                                    cache["xk"][g], cache["xv"][g],
+                                    cache["xlen"], cross=True)
+        x = x + h
+    return x + _ffn(cfg, p, ll.norm_apply(cfg, p["ln2"], x))[0]
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens):
@@ -245,11 +396,19 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     x = ll.embed_apply(params["embed"], tokens, cfg.act_dtype)
     pos = cache["len"][:, None]  # (B, 1) absolute position of the new token
 
-    if fam == "dense":
+    if fam in ATTN_FAMILIES or fam == "audio":
         for i in range(cfg.n_layers):
             x = _attn_block_decode(cfg, _layer(params["blocks"], i), x, pos,
                                    cache, i)
-    else:
+    elif fam == "ssm":
+        for i in range(cfg.n_layers // 2):
+            lp = _layer(params["blocks"], i)
+            for part, step in (("mlstm", xlstm_mod.mlstm_decode),
+                               ("slstm", xlstm_mod.slstm_decode)):
+                x, st = step(cfg, lp[part], x, _layer(cache[part], i))
+                for key, val in st.items():
+                    cache[part][key][i] = val
+    else:  # hybrid
         for i in range(cfg.n_layers):
             lp = _layer(params["blocks"], i)
             out, stt = ssm_mod.mamba_decode(

@@ -1004,3 +1004,56 @@ def test_router_fused_stream_matches_plain_on_card():
     assert calls > 0
     assert launches["map_decide"] == launches["evict_stats"] == calls
     assert runs["plain"][2]["map_decide"] == 0
+
+
+# --------------------------------------------------------------------------
+# The serve shapes of the moe, vlm and audio families
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,hd", [(24, 8, 64), (14, 2, 64), (32, 8, 128),
+                                      (16, 16, 64)])
+def test_family_gqa_attention_on_card(H, Hkv, hd, dtype):
+    """Flash (causal) and decode attention at the new families' head
+    layouts: granite-moe-3b g = 3 and internvl2-1b g = 7 at head dim 64
+    (decode on the kernel's 4- and 8-head instances with heads masked),
+    phi3.5-moe g = 4 at 128, whisper-medium g = 1 at 64."""
+    needs_card()
+    S, g = 160, H // Hkv
+    q = card_normal((2, S, H, hd), g, dtype)
+    k = card_normal((2, S, Hkv, hd), g + 1, dtype)
+    v = card_normal((2, S, Hkv, hd), g + 2, dtype)
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    assert_attention_close(got, flash_plain(causal=True), q, k, v)
+    Sk = 1344
+    q1 = card_normal((3, 1, H, hd), g + 3, dtype)
+    ck = card_normal((3, Sk, Hkv, hd), g + 4, dtype)
+    cv = card_normal((3, Sk, Hkv, hd), g + 5, dtype)
+    kv_len = torch.tensor([Sk, 1, 1300], dtype=torch.int32, device="cuda")
+    got = decode_attention.decode_attention(q1, ck, cv, kv_len)
+    assert_attention_close(got, decode_plain(kv_len), q1, ck, cv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_whisper_encoder_and_cross_attention_on_card(dtype):
+    """whisper-medium's attention: the encoder's non-causal 1500 x 1500
+    (one batch row), the cross-attention of a 4-token decoder prompt over
+    1500 frames, and decode over a 1500-row cross cache, all 16 heads of
+    64 without GQA."""
+    needs_card()
+    H, hd, Se = 16, 64, 1500
+    q = card_normal((1, Se, H, hd), 1, dtype)
+    k = card_normal((1, Se, H, hd), 2, dtype)
+    v = card_normal((1, Se, H, hd), 3, dtype)
+    got = flash_attention.flash_attention(q, k, v, causal=False)
+    assert_attention_close(got, flash_plain(causal=False), q, k, v)
+    q4 = card_normal((2, 4, H, hd), 4, dtype)
+    k2 = card_normal((2, Se, H, hd), 5, dtype)
+    v2 = card_normal((2, Se, H, hd), 6, dtype)
+    got = flash_attention.flash_attention(q4, k2, v2, causal=False)
+    assert_attention_close(got, flash_plain(causal=False), q4, k2, v2)
+    q1 = q4[:, :1].contiguous()
+    xlen = torch.full((2,), Se, dtype=torch.int32, device="cuda")
+    got = decode_attention.decode_attention(q1, k2, v2, xlen)
+    assert_attention_close(got, decode_plain(xlen), q1, k2, v2)

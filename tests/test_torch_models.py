@@ -291,7 +291,7 @@ def test_init_follows_the_reference_distributions():
     assert torch.equal(again["embed"]["tok"], params["embed"]["tok"])
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", jreg.ARCH_IDS)
 def test_full_config_matches_the_reference(arch):
     """Same fields, same analytic count, and a parameter tree of the JAX
     package's shapes at full width (nothing allocated on either side)."""
@@ -319,10 +319,11 @@ def test_full_config_matches_the_reference(arch):
 
 
 def test_other_architectures_and_families_wait_for_roadmap():
-    """Every id of the registry resolves to the reference's config; one
-    of a family the port does not run yet is data only, and building its
-    parameters raises, naming ROADMAP A6 (tests/test_torch_configs.py
-    holds every id)."""
+    """Every id of the registry resolves to the reference's config and
+    builds its parameter spec: no family waits any more (the name is
+    the one this test had while some did). An unknown id raises
+    KeyError, an attention implementation the port lacks ValueError, and
+    ``"plain_chunked"`` (the reference's ``"xla_chunked"``) is taken."""
     assert treg.ARCH_IDS == jreg.ARCH_IDS
     moe = treg.get_config("granite-moe-3b-a800m")
     want = jreg.get_config("granite-moe-3b-a800m")
@@ -331,20 +332,24 @@ def test_other_architectures_and_families_wait_for_roadmap():
                               ) == {**dataclasses.asdict(want),
                                     "attn_impl": "plain",
                                     "ssm_impl": "plain"}
+    assert set(ttf.FAMILIES) == {treg.get_config(a).family
+                                 for a in treg.ARCH_IDS}
     for arch in treg.ARCH_IDS:
-        cfg = treg.get_config(arch)
-        if cfg.family in ttf.FAMILIES:
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            ttf.param_spec(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        ttf.param_spec(port_cfg("qwen1.5-0.5b").scaled(family="moe"))
+        for get in (treg.get_config, treg.get_smoke_config):
+            spec = ttf.param_spec(get(arch))
+            assert "embed" in spec and "blocks" in spec, arch
+    with pytest.raises(ValueError, match="unknown family"):
+        ttf.param_spec(port_cfg("qwen1.5-0.5b").scaled(family="rnn"))
     with pytest.raises(KeyError, match="unknown arch"):
         treg.get_config("granite-moe-7b")
     with pytest.raises(ValueError, match="attn_impl"):
         ModelConfig(name="x", family="dense", n_layers=1, d_model=8,
                     n_heads=2, n_kv_heads=2, d_ff=8, vocab_size=8,
                     attn_impl="xla")
+    with pytest.raises(ValueError, match="ssm_impl"):
+        port_cfg("zamba2-2.7b").scaled(ssm_impl="plain_chunked")
+    chunked = port_cfg("qwen1.5-0.5b").scaled(attn_impl="plain_chunked")
+    assert chunked.attn_impl == "plain_chunked"
 
 
 # --------------------------------------------------------------------------
@@ -369,7 +374,7 @@ def bits(a):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", jreg.ARCH_IDS)
 def test_params_carry_bit_for_bit(arch, dtype):
     tree = to_numpy_tree(jax_params(arch, dtype))
     cfg = port_cfg(arch, dtype=dtype, param_dtype=dtype)
