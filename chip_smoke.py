@@ -13,8 +13,9 @@ matmuls and cuDNN alike).
 
 Phases, one JSON line each; any failed check raises, so the script
 exits non-zero and prints no result line. Phases 1-8c run in this order
-in this process; phases 8d-8e (the other model families' serving and
-the edge example) in a process of their own, alone on the card; then
+in this process; phases 8d-8f (the other model families' serving, the
+edge example and training) in a process of their own, alone on the
+card; then
 phases 9-20 in six processes at once on the same card
 (``SWEEP_GROUPS``: the flat sweep; the flat sweep observed and the
 faulted runs' parity; the paper_x8 sweeps, observed and faulted; the
@@ -184,6 +185,30 @@ launch counts, and their lines arrive interleaved:
               at 20/s, FELARE routing qwen1.5-0.5b and whisper-medium
               requests over four machine groups): its real prefill calls,
               and flash launches equal to their attention blocks;
+  8f. train   (a) qwen1.5-0.5b at its published width and depth (24
+              layers, d_model 1024, vocabulary 151,936), bf16 params,
+              remat on, the plain attention path (the kernels have no
+              backward), random weights from torch.Generator seed 0,
+              trains 20 steps of SyntheticLM seed 0 (8 x 512 tokens per
+              step in 2 microbatches, AdamW at lr 3e-4) through
+              train.loop.run: finite losses and grad norms, the mean loss
+              of the last 5 steps below the first 5's, and no launch of
+              any kernel (counts zeroed just before); ms per step,
+              tokens/s, peak memory, then where one step spends its
+              device time (torch.profiler: top kernels, idle share) and
+              the LM head's and loss's share of it (CUDA events); (b)
+              under torch.use_deterministic_algorithms (set only for
+              this part, with CUBLAS_WORKSPACE_CONFIG=:4096:8) the same
+              job cut to 5 steps, run whole and run with a checkpoint
+              after step 3 and a SimulatedFailure there, restarted by
+              run_with_restarts from that checkpoint: every parameter and
+              optimizer leaf equal bit for bit; (c) the smoke config of
+              one arch per family (dense, hybrid, moe, vlm, audio, ssm)
+              in float32, TF32 off: the first step's loss and every
+              gradient leaf on the card within rel 1e-4 (of the leaf's
+              max|g|) of the CPU's, then make_train_step with
+              attn_impl="kernel" and flash attention on a tensor that
+              requires grad must raise, launching nothing;
   9. main     the flat paper-scale sweep (paper 4x4 system, rates 2-8, 30
               replicates of 2000 tasks) with ELARE, FELARE and MM on the
               fused map kernels and ELARE on the phase1_map kernel; the
@@ -306,6 +331,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -487,6 +513,23 @@ AUDIO_FRAMES = 1500
 FAMILY_PARITY = ("granite-moe-3b-a800m", "internvl2-1b", "whisper-medium")
 # examples/torch_serve_edge.py at its defaults
 EDGE_REQUESTS, EDGE_RATE = 120, 20.0
+# Training: qwen1.5-0.5b at its published width and depth (24 layers,
+# d_model 1024, vocabulary 151,936), bf16 params, remat on, on its plain
+# paths (the kernels have no backward), 8 x 512 tokens per step in 2
+# microbatches, 20 steps of SyntheticLM seed 0 at a constant lr of 3e-4
+# (at 1e-3 the loss fell to step 6, then rose again; at 2e-3 it diverged).
+# The restart check runs the same job cut to 5 steps (a checkpoint after
+# step 3, the failure there): each checkpoint holds 4.6 GB of params and
+# AdamW moments, and the check writes two and reads one.
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 8, 512, 2, 20
+TRAIN_LR = 3e-4
+RESTART_STEPS, RESTART_AT = 5, 3
+# one smoke config per family, float32, card against CPU
+TRAIN_FAMILIES = {"dense": "qwen1.5-0.5b", "hybrid": "zamba2-2.7b",
+                  "moe": "granite-moe-3b-a800m", "vlm": "internvl2-1b",
+                  "audio": "whisper-medium", "ssm": "xlstm-125m"}
+TRAIN_GRAD_TOL = 1e-4
 # The serving front: launch/serve.py's stream (its default fleet of four
 # machine groups and four archs) at 400 requests and 1000 requests/s,
 # routed by plain FELARE and ELARE and through the kernels; the map
@@ -2872,6 +2915,211 @@ def run_serve_edge(device) -> dict:
 
 
 # --------------------------------------------------------------------------
+# Training
+# --------------------------------------------------------------------------
+def train_job(device, steps: int, **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.train import TRAIN_IMPLS
+    from repro_torch.train.loop import TrainJob
+
+    cfg = get_config(TRAIN_ARCH).scaled(**TRAIN_IMPLS)
+    return TrainJob(cfg=cfg, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    accum=TRAIN_ACCUM, lr=TRAIN_LR, device=device, **kw)
+
+
+def lm_head_ms(device, cfg, params) -> float:
+    """Device ms of one step's LM head and loss (forward, the chunk's
+    recompute and backward), over the step's microbatches: the chunked
+    loss on a bf16 hidden state that requires grad, by CUDA events."""
+    import torch
+
+    from repro_torch.train import chunked_lm_loss
+
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    gen = torch.Generator(device=device).manual_seed(0)
+    hidden = torch.randn((mb, TRAIN_SEQ, cfg.d_model), generator=gen,
+                         device=device).to(cfg.act_dtype).requires_grad_()
+    labels = torch.randint(0, cfg.vocab_size, (mb, TRAIN_SEQ),
+                           generator=gen, device=device)
+    mask = torch.ones((mb, TRAIN_SEQ), device=device)
+    embed = {k: v.detach().requires_grad_() for k, v in
+             params["embed"].items()}
+
+    def call():
+        loss, _ = chunked_lm_loss(cfg, {"embed": embed}, hidden, labels,
+                                  mask)
+        torch.autograd.grad(loss, [hidden, *embed.values()])
+    return time_ms(call, 3) * TRAIN_ACCUM
+
+
+def run_train(device) -> dict:
+    """Phase 8f: (a) qwen1.5-0.5b trains TRAIN_STEPS steps at full width
+    through ``train.loop.run`` on the card, with no kernel launch; (b) the
+    same job, interrupted at a checkpoint and resumed, ends bit for bit
+    where the uninterrupted one does, under deterministic algorithms; (c)
+    each family's smoke config's first-step loss and gradients on the card
+    against the CPU, and the kernel path refused. Returns the launch
+    counts of (a)."""
+    import shutil
+
+    import torch
+
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.datapipe.synthetic import SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TRAIN_IMPLS, make_grad_step, \
+        make_train_step
+    from repro_torch.train.loop import SimulatedFailure, run, \
+        run_with_restarts
+
+    card = nvidia_smi()
+    # (a) -----------------------------------------------------------------
+    job = train_job(device, TRAIN_STEPS)
+    cfg = job.cfg
+    require(cfg.remat and cfg.param_dtype == "bfloat16"
+            and cfg.n_layers == 24 and cfg.d_model == 1024
+            and cfg.vocab_size == 151_936,
+            f"train: {TRAIN_ARCH} is not at its published size")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    stamps = []
+    reset_counts()
+    t0 = time.perf_counter()
+    params, opt_state, hist = run(
+        job, on_step=lambda step, rec: stamps.append(time.perf_counter()))
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    # step 0 also holds the init and the allocator's first growth
+    ms_per_step = (stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    first5 = sum(losses[:5]) / 5
+    last5 = sum(losses[-5:]) / 5
+    n_params = sum(t.numel() for t in tr.leaves(params))
+    emit("train", arch=TRAIN_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, params=n_params, param_dtype=cfg.param_dtype,
+         remat=cfg.remat, attn_impl=cfg.attn_impl, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, accum=TRAIN_ACCUM, steps=TRAIN_STEPS, lr=TRAIN_LR,
+         losses=losses, grad_norms=norms, first5_mean=first5,
+         last5_mean=last5, seconds=seconds, first_step_ms=(
+             stamps[0] - t0) * 1e3, ms_per_step=ms_per_step,
+         tokens_per_s=tokens / ms_per_step * 1e3, peak_memory_bytes=peak,
+         launches=counts, card=card)
+    require(all(map(math.isfinite, losses + norms)),
+            "train: a non-finite loss or grad norm")
+    require(last5 < first5, f"train: the loss did not fall ({first5} -> "
+                            f"{last5})")
+    require(not any(counts.values()),
+            f"train: kernels launched on the training path: {counts}")
+
+    step_fn = make_train_step(cfg, AdamW(lr=TRAIN_LR), donate=False,
+                              device=device)
+    batch = SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        accum=TRAIN_ACCUM).batch_at(TRAIN_STEPS)
+    split = device_split(lambda: step_fn(params, opt_state, batch),
+                         host_ops=False)
+    head = lm_head_ms(device, cfg, params)
+    emit("train_profile", arch=TRAIN_ARCH, step=split,
+         idle_share=1 - split["device_busy_ms"] / split["wall_ms_profiled"],
+         lm_head_and_loss_ms=head,
+         lm_head_share_of_busy=head / split["device_busy_ms"], card=card)
+    del params, opt_state, step_fn
+    torch.cuda.empty_cache()
+
+    # (b) -----------------------------------------------------------------
+    ckpt_dir = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    env_before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        pa, sa, _ = run(train_job(device, RESTART_STEPS))
+        whole_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pb, sb, hist_b, restarts = run_with_restarts(
+            train_job(device, RESTART_STEPS, ckpt_dir=str(ckpt_dir),
+                      ckpt_every=RESTART_AT),
+            failures={RESTART_AT: SimulatedFailure("preempted")})
+        interrupted_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         (ckpt_dir / f"step_{RESTART_AT:08d}").iterdir())
+        differ = [n for (n, a), b in zip(tr.named_leaves((pa, sa)),
+                                         tr.leaves((pb, sb)))
+                  if not torch.equal(a, b)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env_before is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env_before
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    emit("train_restart", arch=TRAIN_ARCH, steps=RESTART_STEPS,
+         failure_at=RESTART_AT, restarts=restarts,
+         resumed_at=hist_b[0]["step"], leaves=len(tr.leaves((pa, sa))),
+         leaves_differ=differ, checkpoint_bytes=ckpt_bytes,
+         uninterrupted_seconds=whole_s, interrupted_seconds=interrupted_s,
+         cut=f"{RESTART_STEPS} of the {TRAIN_STEPS} steps", card=card)
+    require(restarts == 1 and hist_b[0]["step"] == RESTART_AT,
+            f"train_restart: {restarts} restarts, resumed at "
+            f"{hist_b[0]['step']}")
+    require(not differ, f"train_restart: leaves differ after the restart: "
+                        f"{differ[:5]}")
+    del pa, sa, pb, sb
+    torch.cuda.empty_cache()
+
+    # (c) -----------------------------------------------------------------
+    errs = {}
+    for family, arch in TRAIN_FAMILIES.items():
+        fcfg = get_smoke_config(arch).scaled(
+            **TRAIN_IMPLS, dtype="float32", param_dtype="float32")
+        host = transformer.init(fcfg, seed=0, device="cpu")
+        card_params = transformer.tree_map(lambda t: t.to(device), host)
+        b = SyntheticLM(fcfg, batch=4, seq=32, accum=2).batch_at(0)
+        want, wm = make_grad_step(fcfg, device="cpu")(host, b)
+        got, gm = make_grad_step(fcfg, device=device)(card_params, b)
+        loss_rel = abs(float(gm["loss"]) - float(wm["loss"])) / abs(
+            float(wm["loss"]))
+        worst = 0.0
+        for (name, w), g in zip(tr.named_leaves(want), tr.leaves(got)):
+            scale = float(w.abs().max())
+            err = float((g.cpu() - w).abs().max()) / max(scale, 1e-30)
+            require(math.isfinite(err), f"train_families {arch}: {name} "
+                                        f"is not finite")
+            if err >= worst:
+                worst, worst_leaf = err, name
+        errs[arch] = {"family": family, "loss": float(gm["loss"]),
+                      "loss_rel": loss_rel, "grad_rel_of_max": worst,
+                      "worst_leaf": worst_leaf,
+                      "tokens": float(gm["tokens"])}
+        require(loss_rel <= TRAIN_GRAD_TOL and worst <= TRAIN_GRAD_TOL,
+                f"train_families {arch}: card against CPU: loss rel "
+                f"{loss_rel}, grad {worst} of max at {worst_leaf}")
+    refused = []
+    try:
+        make_train_step(get_smoke_config(TRAIN_ARCH), AdamW(), device=device)
+    except ValueError as e:
+        refused.append(str(e))
+    q = torch.randn((1, 16, 2, 64), device=device, requires_grad=True)
+    before = flash_ops.LAUNCHES["flash_attention"]
+    try:
+        flash_ops.flash_attention(q, q.detach(), q.detach())
+    except RuntimeError as e:
+        refused.append(str(e))
+    emit("train_families", tolerance=TRAIN_GRAD_TOL, dtype="float32",
+         tf32=False, by_arch=errs, kernel_path_refused=refused)
+    require(len(refused) == 2
+            and flash_ops.LAUNCHES["flash_attention"] == before,
+            f"train_families: the kernel path was not refused: {refused}")
+    return counts
+
+
+# --------------------------------------------------------------------------
 # The serving front: the router and the elastic launcher
 # --------------------------------------------------------------------------
 def router_name(heuristic: str, fused) -> str:
@@ -3840,12 +4088,14 @@ def group_scenarios(device, args) -> dict:
 
 
 def group_families(device, args) -> dict:
-    """Phases 8d and 8e: the moe, vlm, audio and ssm families served at
-    full width (and the float32 parity of three of them), then the
-    edge-serving example."""
+    """Phases 8d, 8e and 8f: the moe, vlm, audio and ssm families served at
+    full width (and the float32 parity of three of them), the
+    edge-serving example, then training."""
     families, by_shape = run_family_serve(device)
     edge = run_serve_edge(device)
-    return {"paths": {"serve_families": families, "serve_edge": edge},
+    train = run_train(device)
+    return {"paths": {"serve_families": families, "serve_edge": edge,
+                      "train": train},
             "by_shape": by_shape}
 
 
@@ -4067,7 +4317,7 @@ def main(argv=None) -> int:
     paths = {"flat": {}, "federated": {}, "serve": serve, "observed": {},
              "faults": {}, "network": {}, "scenarios": {},
              "serve_dense": {}, "router": router, "serve_families": {},
-             "serve_edge": {}}
+             "serve_edge": {}, "train": {}}
     for counts in dense.values():
         for k, v in counts.items():
             paths["serve_dense"][k] = paths["serve_dense"].get(k, 0) + v

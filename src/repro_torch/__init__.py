@@ -5,8 +5,9 @@ The package mirrors the JAX package ``repro`` module for module
 ``repro/core/engine.py``, and so on) and covers the sweep over flat and
 federated systems (trace synthesis, the batched event loop, the eight
 composed mapping policies, the dispatchers and the sweep CLI) and the
-model substrate's serving path for the dense and hybrid families
-(``configs``, ``models``, ``train.steps.make_serve_steps``). Every
+model substrate's serving path for all six families and its
+single-device training (``configs``, ``models``, ``optim``, ``train``,
+``checkpoint``, ``launch.train``). Every
 kernel of the reference (``kernels/map_fused``, ``kernels/phase1_map``,
 ``kernels/flash_attention``, ``kernels/decode_attention``,
 ``kernels/ssm_scan``) is CUDA C++ written for Hopper (``kernels/csrc``),

@@ -13,6 +13,9 @@ values:
   * ``"plain_chunked"`` (``attn_impl`` only): the plain attention taken
     1024 query rows at a time, the counterpart of the reference's
     ``"xla_chunked"``.
+
+The kernels have no backward pass, so training takes the plain paths
+(``repro_torch.train.TRAIN_IMPLS``), as the reference trains on XLA's.
 """
 from __future__ import annotations
 
@@ -66,8 +69,7 @@ class ModelConfig:
     # kernel selection: kernel | plain | plain_chunked (attention only)
     attn_impl: str = "kernel"
     ssm_impl: str = "kernel"
-    # kept for the reference's signature; the port has no training yet
-    # (ROADMAP A6b)
+    # training: recompute each block's activations in the backward pass
     remat: bool = True
 
     def __post_init__(self):

@@ -2,7 +2,7 @@
 
 For the scheduler, what two implementations must share to be compared is
 the machine table and the tasks; for the model substrate, the parameter
-tree. These helpers take numpy arrays (any array with ``__array__``) and
+tree and the optimizer's state. These helpers take numpy arrays (any array with ``__array__``) and
 build the port's types; they never import the JAX package, so a caller
 holding the reference's arrays converts them with ``numpy.asarray`` first.
 """
@@ -144,23 +144,51 @@ def model_params_from_arrays(cfg, tree, device=None) -> dict:
     bit, bfloat16 included. Returns nested dicts of tensors on ``device``
     (``None`` = CUDA).
     """
-    from repro_torch.models.transformer import param_spec
+    return _params_like(cfg, tree, resolve_device(device), None, "params")
 
-    dev = resolve_device(device)
+
+def _params_like(cfg, tree, dev, dtype, root: str) -> dict:
+    """``tree`` checked against the parameter tree of ``cfg`` and carried
+    onto ``dev``; every leaf of dtype ``dtype`` (``None``: the
+    parameter's own)."""
+    from repro_torch.models.transformer import param_spec
 
     def walk(spec, sub, where):
         if not isinstance(spec, dict):
             if tuple(np.shape(sub)) != spec.shape:
                 raise ValueError(f"{where}: shape {tuple(np.shape(sub))}, "
                                  f"expected {spec.shape}")
-            return _tensor_from_array(sub, spec.dtype, where, dev)
+            return _tensor_from_array(sub, dtype or spec.dtype, where, dev)
         if not isinstance(sub, dict):
             raise ValueError(f"{where}: expected a dict of leaves")
         missing = sorted(set(spec) - set(sub))
         extra = sorted(set(sub) - set(spec))
         if missing or extra:
-            raise KeyError(f"{where or 'params'}: missing {missing}, "
+            raise KeyError(f"{where or root}: missing {missing}, "
                            f"extra {extra}")
         return {k: walk(spec[k], sub[k], f"{where}/{k}") for k in spec}
 
     return walk(param_spec(cfg), tree, "")
+
+
+def opt_state_from_arrays(cfg, state, device=None):
+    """The port's ``AdamWState`` from the reference's.
+
+    ``state`` is the JAX package's ``AdamWState`` for ``cfg``'s parameters
+    with numpy leaves (for example ``jax.tree.map(np.asarray, state)``),
+    or any object with ``step``, ``mu`` and ``nu``: an int32 scalar and
+    two float32 trees shaped like the parameters, checked as
+    :func:`model_params_from_arrays` checks those. Values are carried bit
+    for bit, onto ``device`` (``None`` = CUDA).
+    """
+    from repro_torch.optim.adamw import AdamWState
+
+    dev = resolve_device(device)
+    step = np.asarray(state.step)
+    if step.shape != () or step.dtype != np.int32:
+        raise TypeError(f"step: {step.dtype} {step.shape}, expected an "
+                        f"int32 scalar")
+    return AdamWState(
+        step=torch.from_numpy(np.array(step)).to(dev),
+        mu=_params_like(cfg, state.mu, dev, torch.float32, "mu"),
+        nu=_params_like(cfg, state.nu, dev, torch.float32, "nu"))

@@ -12,6 +12,20 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+def refuse_autograd(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record this call: grad mode is on and an
+    input requires grad. The CUDA kernels have no backward (the JAX
+    package's Pallas kernels have none either), and on the card their
+    output would leave the graph, so the wrapper refuses on every device,
+    the CPU included, rather than return a result whose gradient is
+    silently wrong."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the kernel has no backward pass (nor have the JAX "
+            f"package's Pallas kernels); train with attn_impl=\"plain\" and "
+            f"ssm_impl=\"plain\", or call it under torch.no_grad()")
+
+
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
           device: torch.device) -> int:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on

@@ -26,6 +26,7 @@ from repro_torch.kernels.common import (
     cuda_device,
     on_cpu,
     raise_on,
+    refuse_autograd,
     stream_ptr,
 )
 from repro_torch.kernels.flash_attention.ops import (
@@ -64,6 +65,7 @@ def decode_attention(q, k, v, kv_len):
     if q.shape[1] != 1 or kv_len is None:
         raise ValueError(f"decode takes q (B, 1, H, hd) and kv_len, got q "
                          f"{tuple(q.shape)}")
+    refuse_autograd("decode_attention", q, k, v)
     if on_cpu(q, k, v, kv_len):
         return decode_attention_plain(q, k, v, kv_len)
     dev = cuda_device(q)

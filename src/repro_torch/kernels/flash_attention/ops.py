@@ -33,6 +33,7 @@ from repro_torch.kernels.common import (
     cuda_device,
     on_cpu,
     raise_on,
+    refuse_autograd,
     stream_ptr,
 )
 
@@ -126,6 +127,7 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_len=None,
     256.
     """
     check_attention_args(q, k, v, kv_len, q_offset)
+    refuse_autograd("flash_attention", q, k, v)
     tensors = (q, k, v) + (() if kv_len is None else (kv_len,))
     if on_cpu(*tensors):
         return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,

@@ -41,6 +41,7 @@ from repro_torch.kernels.common import (
     cuda_device,
     on_cpu,
     raise_on,
+    refuse_autograd,
     stream_ptr,
 )
 
@@ -162,6 +163,7 @@ def ssm_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
                              f"{shape}")
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    refuse_autograd("ssm_scan", x, dt, A, Bm, Cm)
     Q = chunk_of(L, chunk)
     if on_cpu(x, dt, A, Bm, Cm):
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)

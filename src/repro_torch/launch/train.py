@@ -1,0 +1,125 @@
+"""Training launcher: ``--arch <id>`` on one device, with checkpoints and
+restart (counterpart of ``repro/launch/train.py``).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+      --steps 50 --smoke --device cpu      # reduced config, CPU
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+      --steps 20                           # the full config, on the card
+
+The model trains on its plain attention and SSD paths (the kernels have
+no backward pass; the reference trains on XLA's), and the first line
+says so. Weights are the port's own draw (``torch.Generator`` seed 0),
+batches ``SyntheticLM``'s. ``tok/s`` counts the tokens of the steps since
+the previous line. ``--production-mesh`` and ``--model-axis`` > 1 need
+the sharded step, which is not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import tree as tr
+from repro_torch.checkpoint import ckpt
+from repro_torch.configs import registry
+from repro_torch.core.device import resolve_device
+from repro_torch.datapipe.synthetic import Prefetcher, SyntheticLM
+from repro_torch.models import transformer as tf
+from repro_torch.optim.adamw import AdamW
+from repro_torch.optim.schedule import cosine_with_warmup
+from repro_torch.train.steps import TRAIN_IMPLS, make_train_step
+
+NOT_PORTED = ("the sharded train step is not ported yet (ROADMAP A6b, "
+              "distributed/ and launch/mesh.py); the port trains on one "
+              "device")
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", required=True, choices=registry.ARCH_IDS)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-sized)")
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="TP width of the host mesh")
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if args.production_mesh or args.model_axis > 1:
+        print(f"error: --production-mesh / --model-axis > 1: {NOT_PORTED}")
+        return 2
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"error: {e}")
+        return 2
+    cfg = (registry.get_smoke_config(args.arch) if args.smoke
+           else registry.get_config(args.arch)).scaled(**TRAIN_IMPLS)
+    print(f"device={dev} attn_impl={cfg.attn_impl} ssm_impl={cfg.ssm_impl} "
+          f"(the kernels have no backward pass)")
+
+    opt = AdamW(lr=None)
+    sched = cosine_with_warmup(args.lr, warmup=min(100, args.steps // 10 + 1),
+                               total=args.steps)
+    step_fn = make_train_step(cfg, opt, lr_schedule=sched, donate=False,
+                              device=dev)
+    data = SyntheticLM(cfg, batch=args.batch, seq=args.seq, accum=args.accum)
+
+    start = 0
+    if args.ckpt and ckpt.latest_step(args.ckpt) is not None:
+        target = tf.param_shapes(cfg)
+        state, start = ckpt.restore(
+            args.ckpt, {"p": target, "o": opt.init(target)}, device=dev)
+        params, opt_state = state["p"], state["o"]
+        print(f"restored from step {start}")
+    else:
+        params = tf.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+        opt_state = opt.init(params)
+
+    n_params = sum(p.numel() for p in tr.leaves(params))
+    print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
+          f"devices=1 batch={args.batch} seq={args.seq}")
+
+    it = iter(Prefetcher(data.batch_at(s)
+                         for s in range(start, args.steps)))
+    t0, since = time.time(), 0
+    pending = None
+    for step in range(start, args.steps):
+        batch = next(it)
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        since += 1
+        if step % 10 == 0 or step == args.steps - 1:
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            tput = since * args.batch * args.seq / max(time.time() - t0,
+                                                       1e-9)
+            print(f"step {step:5d} loss {loss:.4f} "
+                  f"gnorm {gnorm:.2f} tok/s {tput:.0f}")
+            t0, since = time.time(), 0
+        if args.ckpt and (step + 1) % args.ckpt_every == 0:
+            if pending is not None:
+                pending.join()
+            pending = ckpt.save(args.ckpt, step + 1,
+                                {"p": params, "o": opt_state},
+                                blocking=False)
+    if pending is not None:
+        pending.join()
+    if args.ckpt:
+        ckpt.save(args.ckpt, args.steps, {"p": params, "o": opt_state})
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -16,14 +16,23 @@ Parameters are nested dicts of tensors with the reference's keys,
 per-layer leaves stacked on a leading (L, ...) axis; the layer loops are
 Python loops over that axis. ``forward`` and ``prefill`` return final
 hidden states; the LM head is applied by the caller
-(``repro_torch.train.steps``) or by ``decode_step``.
+(``repro_torch.train``) or by ``decode_step``.
+
+``forward`` is the training body: it can be differentiated for every
+family, and under ``cfg.remat`` each block's activations are recomputed
+in the backward pass (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` per block) whenever autograd records. Serving is
+unchanged by it.
 
 Decode updates the cache in place (KV rows, SSM, conv and xLSTM states)
 and returns it with ``len`` advanced; the reference returns new arrays.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
@@ -54,6 +63,23 @@ def tree_map(fn, tree):
 def _layer(tree, i: int):
     """Layer ``i`` of a tree of stacked (L, ...) leaves."""
     return tree_map(lambda a: a[i], tree)
+
+
+def _layers(tree, n: int) -> list:
+    """All ``n`` layers of a tree of stacked (L, ...) leaves, one
+    ``unbind`` per leaf: its backward stacks the layers' gradients once,
+    where ``n`` indexings would each add a full (L, ...) gradient."""
+    per_leaf = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t, i=i: t[i], per_leaf) for i in range(n)]
+
+
+def _remat(cfg, fn, *args):
+    """``fn(*args)``; under ``cfg.remat``, while autograd records, its
+    activations are dropped and recomputed in the backward pass."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 # ==========================================================================
@@ -200,9 +226,11 @@ def _encode(cfg, params, frames):
     """The audio encoder over stub frame embeddings: (enc, positions)."""
     x = frames.to(cfg.act_dtype)
     pos = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.encoder_layers):
-        x, _ = _attn_block_apply(cfg, _layer(params["enc_blocks"], i), x, pos,
-                                 causal=False)
+
+    def block(x, lp):
+        return _attn_block_apply(cfg, lp, x, pos, causal=False)[0]
+    for lp in _layers(params["enc_blocks"], cfg.encoder_layers):
+        x = _remat(cfg, block, x, lp)
     return ll.norm_apply(cfg, params["enc_norm"], x), pos
 
 
@@ -219,29 +247,34 @@ def forward(cfg: ModelConfig, params, batch):
         x, positions = _embed_input(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if fam in ATTN_FAMILIES:
-        for i in range(cfg.n_layers):
-            x, (_, _, a) = _attn_block_apply(
-                cfg, _layer(params["blocks"], i), x, positions)
+        def block(x, lp):
+            x, (_, _, a) = _attn_block_apply(cfg, lp, x, positions)
+            return x, a
+        for lp in _layers(params["blocks"], cfg.n_layers):
+            x, a = _remat(cfg, block, x, lp)
             if a is not None:
                 aux = aux + a
     elif fam == "ssm":
-        for i in range(cfg.n_layers // 2):
-            lp = _layer(params["blocks"], i)
+        def superblock(x, lp):
             x = xlstm_mod.mlstm_apply(cfg, lp["mlstm"], x)
-            x = xlstm_mod.slstm_apply(cfg, lp["slstm"], x)
+            return xlstm_mod.slstm_apply(cfg, lp["slstm"], x)
+        for lp in _layers(params["blocks"], cfg.n_layers // 2):
+            x = _remat(cfg, superblock, x, lp)
     elif fam == "hybrid":
-        for i in range(cfg.n_layers):
-            x = _mamba_layer(cfg, _layer(params["blocks"], i), x)
+        def shared(x, p, g):
+            return _attn_block_apply(cfg, p, _shared_input(cfg, params, x, g),
+                                     positions)[0]
+        for i, lp in enumerate(_layers(params["blocks"], cfg.n_layers)):
+            x = _remat(cfg, partial(_mamba_layer, cfg), lp, x)
             if (i + 1) % cfg.attn_every == 0:
-                g = i // cfg.attn_every
-                x, _ = _attn_block_apply(cfg, params["shared_attn"],
-                                         _shared_input(cfg, params, x, g),
-                                         positions)
+                x = _remat(cfg, shared, x, params["shared_attn"],
+                           i // cfg.attn_every)
     else:  # audio
-        for i in range(cfg.n_layers):
-            x, _ = _attn_block_apply(cfg, _layer(params["blocks"], i), x,
-                                     positions, enc=enc,
-                                     enc_positions=enc_pos)
+        def block(x, lp):
+            return _attn_block_apply(cfg, lp, x, positions, enc=enc,
+                                     enc_positions=enc_pos)[0]
+        for lp in _layers(params["blocks"], cfg.n_layers):
+            x = _remat(cfg, block, x, lp)
     return ll.norm_apply(cfg, params["final_norm"], x), aux
 
 
