@@ -15,7 +15,7 @@ Phases, one JSON line each; any failed check raises, so the script
 exits non-zero and prints no result line. Phases 1-8c run in this order
 in this process; phases 8d-8f (the other model families' serving, the
 edge example and training) in a process of their own, alone on the
-card; then
+card; phase 8g (the sharded substrate) in another, alone; then
 phases 9-20 in six processes at once on the same card
 (``SWEEP_GROUPS``: the flat sweep; the flat sweep observed and the
 faulted runs' parity; the paper_x8 sweeps, observed and faulted; the
@@ -209,6 +209,28 @@ launch counts, and their lines arrive interleaved:
               max|g|) of the CPU's, then make_train_step with
               attn_impl="kernel" and flash attention on a tensor that
               requires grad must raise, launching nothing;
+  8g. sharded (its own process, alone) the sharded substrate on a
+              process group of one rank (NCCL, joined through a file://
+              store in a temporary directory), as the card's machine
+              has one GPU: (a) 8f's training cell for 3 steps through
+              make_train_step(cfg, opt, mesh) on a (1, 1, 1) (pod, data,
+              model) mesh, every leaf a DTensor in the reference's
+              layout, against the one-device step from the same init
+              and batches under deterministic algorithms: loss, grad
+              norm and every parameter and moment bit for bit (else
+              within rel 1e-6 and 1e-5 of max|p|, the cause printed);
+              ms per step and peak memory both ways; (b) qwen1.5-0.5b
+              serving 8 x 1024 tokens and 3 greedy tokens through
+              make_serve_steps(cfg, mesh) on (1, 1) against the
+              unmeshed steps: logits and every cache leaf bit for bit,
+              24 flash and 72 decode launches both ways; (c) ring
+              attention within 1e-5 of the plain attention, gpipe over
+              one stage (and its gradient) against the sequential
+              apply, the compressed mean equal to the
+              quantize-dequantize; (d) run_sweep(shard=True) on the flat
+              FELARE spec (2 rates x 3 reps x 200 tasks) equal to
+              shard=False by sha256; one line with the card's name and
+              power limit;
   9. main     the flat paper-scale sweep (paper 4x4 system, rates 2-8, 30
               replicates of 2000 tasks) with ELARE, FELARE and MM on the
               fused map kernels and ELARE on the phase1_map kernel; the
@@ -530,6 +552,16 @@ TRAIN_FAMILIES = {"dense": "qwen1.5-0.5b", "hybrid": "zamba2-2.7b",
                   "moe": "granite-moe-3b-a800m", "vlm": "internvl2-1b",
                   "audio": "whisper-medium", "ssm": "xlstm-125m"}
 TRAIN_GRAD_TOL = 1e-4
+# The sharded substrate at world size 1 (the card's machine has one GPU):
+# PERF.md §4's training cell (qwen1.5-0.5b, 8 x 512 tokens in 2
+# microbatches) for 3 steps through make_train_step(cfg, opt, mesh) on
+# (1, 1, 1) (pod, data, model), and its serving for 8 x 1024-token
+# prompts and 3 greedy tokens through make_serve_steps(cfg, mesh) on
+# (1, 1) (data, model), each against the unmeshed path; the sweep on the
+# flat FELARE spec at 2 rates x 3 reps x 200 tasks.
+SHARDED_TRAIN_STEPS, SHARDED_NEW = 3, 3
+SHARDED_RATES, SHARDED_REPS, SHARDED_TASKS = (3.0, 6.0), 3, 200
+SHARDED_LOSS_REL, SHARDED_PARAM_OF_MAX = 1e-6, 1e-5
 # The serving front: launch/serve.py's stream (its default fleet of four
 # machine groups and four archs) at 400 requests and 1000 requests/s,
 # routed by plain FELARE and ELARE and through the kernels; the map
@@ -2494,7 +2526,7 @@ def run_serve_parity(device, params_bf16, batch) -> None:
     tok = None
     outs = {}
     for label, c in (("kernel", cfg32), ("plain", cfg32.scaled(**plain))):
-        pre, dec = make_serve_steps(c, device)
+        pre, dec = make_serve_steps(c, device=device)
         logits, cache = pre(params32, batch, max_seq=SERVE_MAX_SEQ)
         if tok is None:
             tok = logits.argmax(-1)
@@ -2512,9 +2544,9 @@ def run_serve_parity(device, params_bf16, batch) -> None:
 
     # -- bfloat16 ----------------------------------------------------------
     blocks = bf16_blocks(cfg, params_bf16, batch)
-    got = make_serve_steps(cfg, device)[0](params_bf16, batch,
-                                           max_seq=SERVE_MAX_SEQ)[0]
-    want = make_serve_steps(cfg.scaled(**plain), device)[0](
+    got = make_serve_steps(cfg, device=device)[0](params_bf16, batch,
+                                                  max_seq=SERVE_MAX_SEQ)[0]
+    want = make_serve_steps(cfg.scaled(**plain), device=device)[0](
         params_bf16, batch, max_seq=SERVE_MAX_SEQ)[0]
     top2 = want[:, 0].topk(2, dim=-1).values
     gap = (top2[:, 0] - top2[:, 1]) / want.abs().max()
@@ -2729,7 +2761,7 @@ def family_parity(device, cfg, params_bf16, batch, max_seq: int) -> None:
     outs, tok = {}, None
     for label, c in (("kernel", cfg32),
                      ("plain", cfg32.scaled(attn_impl="plain"))):
-        pre, dec = make_serve_steps(c, device)
+        pre, dec = make_serve_steps(c, device=device)
         logits, cache = pre(params32, batch, max_seq=max_seq)
         if tok is None:
             tok = logits.argmax(-1)
@@ -3117,6 +3149,772 @@ def run_train(device) -> dict:
             and flash_ops.LAUNCHES["flash_attention"] == before,
             f"train_families: the kernel path was not refused: {refused}")
     return counts
+
+
+# --------------------------------------------------------------------------
+# The sharded substrate at world size 1
+# --------------------------------------------------------------------------
+def _first_difference(a_tree, b_tree) -> tuple:
+    """(leaves that differ, the largest |a - b| over max|b| among them,
+    its leaf) of two trees of tensors in the same structure."""
+    from repro_torch import tree as tr
+
+    import torch
+
+    differ, worst, where = [], 0.0, None
+    for (name, a), b in zip(tr.named_leaves(a_tree), tr.leaves(b_tree)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            differ.append(name)
+            rel = _of_max(a, b)
+            if rel >= worst:
+                worst, where = rel, name
+    return differ, worst, where
+
+
+def _timed(fn):
+    """``(fn(), its wall ms)`` of one call between two syncs: a train or
+    decode step changes its state, so it is timed once per call, not
+    repeated as ``time_ms`` repeats a kernel."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def sharded_train(device, mesh, init) -> dict:
+    """(a) 3 train steps of qwen1.5-0.5b through make_train_step(cfg, opt,
+    mesh) against the one-device step, each from a copy of ``init`` (the
+    parameters) and the same batches."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_config
+    from repro_torch.datapipe.synthetic import SyntheticLM
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TRAIN_IMPLS, make_train_step
+
+    cfg = get_config(TRAIN_ARCH).scaled(**TRAIN_IMPLS)
+    require(cfg.remat and cfg.param_dtype == "bfloat16"
+            and cfg.n_layers == 24 and cfg.d_model == 1024
+            and cfg.vocab_size == 151_936,
+            f"sharded: {TRAIN_ARCH} is not at its published size")
+    opt = AdamW(lr=TRAIN_LR)
+    data = SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                       accum=TRAIN_ACCUM)
+    runs = {}
+    for label in ("single", "meshed"):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(device)
+        params = transformer.tree_map(torch.clone, init)
+        if label == "meshed":
+            step = make_train_step(cfg, opt, mesh)
+            params = sh.distribute(params, step.param_shardings)
+            opt_state = opt.init(params)
+            layouts = {"p": step.param_shardings, "o": step.opt_shardings}
+            for (name, x), lay in zip(
+                    tr.named_leaves({"p": params, "o": opt_state}),
+                    tr.leaves(layouts)):
+                require(isinstance(x, DTensor)
+                        and tuple(x.placements) == lay.placements,
+                        f"sharded: {name} is not in the reference's layout")
+            step = step.jit_for(data.batch_at(0))
+        else:
+            step = make_train_step(cfg, opt, device=device)
+            opt_state = opt.init(params)
+        ms, losses, norms = [], [], []
+        torch.cuda.reset_peak_memory_stats(device)
+        for i in range(SHARDED_TRAIN_STEPS):
+            batch = data.batch_at(i)
+            (params, opt_state, m), t = _timed(
+                lambda: step(params, opt_state, batch))
+            ms.append(t)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        runs[label] = {"ms": ms, "loss": losses, "grad_norm": norms,
+                       "peak_bytes": torch.cuda.max_memory_allocated(device)
+                       - base,
+                       "state": {"p": sh.to_local(params),
+                                 "o": sh.to_local(opt_state)}}
+    a, b = runs["meshed"], runs["single"]
+    differ, worst, where = _first_difference(a["state"], b["state"])
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(a["loss"],
+                                                       b["loss"]))
+    out = {"arch": TRAIN_ARCH, "mesh": "(1, 1, 1) pod, data, model",
+           "deterministic_algorithms": True,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "accum": TRAIN_ACCUM,
+           "steps": SHARDED_TRAIN_STEPS,
+           "loss": {k: runs[k]["loss"] for k in runs},
+           "grad_norm": {k: runs[k]["grad_norm"] for k in runs},
+           "ms_per_step": {k: runs[k]["ms"] for k in runs},
+           "ms_per_step_after_first": {
+               k: sum(runs[k]["ms"][1:]) / (SHARDED_TRAIN_STEPS - 1)
+               for k in runs},
+           # the run's own state and the steps' working set: the peak
+           # over its steps above what was resident before its init
+           "peak_bytes": {k: runs[k]["peak_bytes"] for k in runs},
+           "leaves": len(tr.leaves(b["state"])),
+           "bit_for_bit": not differ and a["loss"] == b["loss"]
+           and a["grad_norm"] == b["grad_norm"],
+           "leaves_differ": len(differ), "loss_rel": loss_rel,
+           "largest_difference_of_max": worst, "at": where}
+    if differ or a["loss"] != b["loss"]:
+        # world size 1 has no cross-rank sum: any difference would be the
+        # order of a reduction inside one device's kernels
+        out["cause"] = "reduction order"
+        require(loss_rel <= SHARDED_LOSS_REL
+                and worst <= SHARDED_PARAM_OF_MAX,
+                f"sharded train: meshed against single: loss rel "
+                f"{loss_rel}, {worst} of max at {where}")
+    return out
+
+
+def sharded_serve(device, mesh, params) -> tuple:
+    """(b) qwen1.5-0.5b prefill (8 x 1024) and 3 greedy decode steps
+    through make_serve_steps(cfg, mesh) against the unmeshed steps: logits
+    and every cache leaf bit for bit, the same flash and decode launches.
+    Returns (the phase's numbers, the meshed run's launch counts)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import transformer
+    from repro_torch.train import make_serve_steps
+
+    cfg = get_config(TRAIN_ARCH)
+    require(cfg.attn_impl == "kernel", "sharded serve: not on the kernels")
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)))}
+    max_seq = SERVE_PROMPT + SHARDED_NEW
+    # load (or, run alone, build) both kernels before either run is timed
+    pre, dec = make_serve_steps(cfg, device=device)
+    logits, cache = pre(params, {"tokens": batch["tokens"][:1, :128]},
+                        max_seq=129)
+    dec(params, cache, logits.argmax(-1))
+    runs = {}
+    for label in ("unmeshed", "meshed"):
+        if label == "meshed":
+            p = sh.distribute(params, sh.param_shardings(params, mesh, cfg))
+            prefill_for, decode_for = make_serve_steps(cfg, mesh)
+            prefill = prefill_for(batch, max_seq)
+        else:
+            p = params
+            prefill_step, decode_step = make_serve_steps(cfg, device=device)
+            prefill = (lambda pp, bb: prefill_step(pp, bb, max_seq=max_seq))
+        reset_counts()
+        (logits, cache), pre_ms = _timed(lambda: prefill(p, batch))
+        outs, dec_ms = [logits], []
+        for _ in range(SHARDED_NEW):
+            toks = sh.gather(logits).argmax(-1)
+            if label == "meshed":
+                cshard = sh.cache_sharding(cfg, mesh, cache)
+                for (name, x), lay in zip(tr.named_leaves(cache),
+                                          tr.leaves(cshard)):
+                    require(tuple(x.placements) == lay.placements,
+                            f"sharded serve: cache {name} layout")
+                decode = decode_for(cache, toks)
+            else:
+                decode = decode_step
+            (logits, cache), t = _timed(lambda: decode(p, cache, toks))
+            outs.append(logits)
+            dec_ms.append(t)
+        counts = read_counts()
+        runs[label] = {"logits": [sh.gather(x) for x in outs],
+                       "cache": sh.to_local(cache), "counts": counts,
+                       "prefill_ms": pre_ms, "decode_ms": dec_ms}
+    a, b = runs["meshed"], runs["unmeshed"]
+    logits_equal = all(torch.equal(x, y) for x, y in zip(a["logits"],
+                                                         b["logits"]))
+    differ, worst, where = _first_difference(a["cache"], b["cache"])
+    kernels = ("flash_attention", "decode_attention")
+    out = {"arch": TRAIN_ARCH, "mesh": "(1, 1) data, model",
+           "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+           "new_tokens": SHARDED_NEW, "logits_bit_for_bit": logits_equal,
+           "cache_leaves": len(tr.leaves(b["cache"])),
+           "cache_leaves_differ": differ,
+           "launches": {k: {r: runs[r]["counts"][k] for r in runs}
+                        for k in kernels},
+           "prefill_ms": {r: runs[r]["prefill_ms"] for r in runs},
+           "decode_ms": {r: runs[r]["decode_ms"] for r in runs}}
+    require(logits_equal, "sharded serve: meshed logits differ")
+    require(not differ, f"sharded serve: cache leaves differ: {differ} "
+                        f"({worst} of max at {where})")
+    for k in kernels:
+        require(a["counts"][k] == b["counts"][k] > 0,
+                f"sharded serve: {k}: {a['counts'][k]} meshed launches, "
+                f"{b['counts'][k]} unmeshed")
+    require(a["counts"]["flash_attention"] == cfg.n_layers
+            and a["counts"]["decode_attention"] == cfg.n_layers * SHARDED_NEW,
+            f"sharded serve: launches {a['counts']}")
+    return out, a["counts"]
+
+
+def sharded_collectives(device) -> dict:
+    """(c) ring attention, gpipe over one stage and the compressed mean at
+    world size 1 against what they reduce to."""
+    import torch
+
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed.pipeline import gpipe, stack_stages
+    from repro_torch.distributed.ring_attention import ring_attention
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import sdpa_plain
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    mesh = make_mesh((1, 1), ("data", "model"), device=device)
+    q, k, v = (torch.randn((2, 256, 4, 64), generator=gen, device=device)
+               * 0.5 for _ in range(3))
+    ring = {}
+    for causal in (True, False):
+        got = ring_attention(q, k, v, mesh, "model", causal=causal)
+        want = sdpa_plain(q, k, v, causal=causal)
+        ring[causal] = float((got.to_local() - want).abs().max())
+    require(max(ring.values()) <= 1e-5,
+            f"sharded: ring attention against plain: {ring}")
+
+    pipe = make_mesh((1,), ("pipe",), device=device)
+    W = (torch.randn((4, 64, 64), generator=gen, device=device)
+         * 64 ** -0.5).requires_grad_(True)
+    xs = torch.randn((6, 8, 64), generator=gen, device=device)
+
+    def stage(Ws, x):
+        for i in range(Ws.shape[0]):
+            x = torch.tanh(x @ Ws[i])
+        return x
+    got = gpipe(stage, pipe, "pipe")(stack_stages({"w": W}, 1)["w"], xs)
+    g_pipe, = torch.autograd.grad((got ** 2).mean(), [W])
+    want = torch.stack([stage(W, xs[m]) for m in range(xs.shape[0])])
+    g_seq, = torch.autograd.grad((want ** 2).mean(), [W])
+    pipe_err = float((got - want).detach().abs().max())
+    pipe_grad_err = float((g_pipe - g_seq).abs().max())
+    require(pipe_err <= 1e-6 and pipe_grad_err <= 1e-6,
+            f"sharded: gpipe over one stage: {pipe_err}, {pipe_grad_err}")
+
+    pod = make_mesh((1, 1, 1), ("pod", "data", "model"), device=device)
+    g = {"w": torch.randn((1024, 1024), generator=gen, device=device),
+         "b": torch.randn((1024,), generator=gen, device=device)
+         .to(torch.bfloat16)}
+    mean, res = comp.crosspod_mean_compressed(
+        g, comp.init_residuals(g), pod.get_group("pod"))
+    comp_equal = True
+    for name, x in g.items():
+        qq, s = comp.quantize_int8(x.float())
+        deq = comp.dequantize_int8(qq, s)
+        comp_equal &= (mean[name].dtype == x.dtype
+                       and torch.equal(mean[name], deq.to(x.dtype))
+                       and torch.equal(res[name], x.float() - deq))
+    require(comp_equal, "sharded: the compressed mean over one rank is not "
+                        "the quantize-dequantize of the gradient")
+    return {"ring_max_abs_err": {str(c): e for c, e in ring.items()},
+            "gpipe_max_abs_err": pipe_err,
+            "gpipe_grad_max_abs_err": pipe_grad_err,
+            "gpipe_bit_for_bit": pipe_err == 0 and pipe_grad_err == 0,
+            "compressed_equals_quantize_dequantize": comp_equal}
+
+
+def sharded_sweep(device) -> tuple:
+    """(d) run_sweep(shard=True) on the flat FELARE spec equals shard=False
+    bit for bit (one card: the plain path, as in the reference)."""
+    import hashlib
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.experiments import SweepSpec, run_sweep
+
+    spec = SweepSpec(system="paper", rates=SHARDED_RATES,
+                     reps=SHARDED_REPS, n_tasks=SHARDED_TASKS,
+                     heuristics=("FELARE",), seed=0, use_fused_map=True)
+    reset_counts()
+    digests = {}
+    for shard in (False, True):
+        res = run_sweep(spec, device=device, shard=shard)
+        digests[shard] = metrics_digest(res, "FELARE")
+    counts = read_counts()
+    devices = sh.sweep_devices(device)
+    require(digests[True] == digests[False],
+            "sharded: run_sweep(shard=True) differs from shard=False")
+    require(devices is None or len(devices) > 1,
+            f"sharded: sweep devices {devices}")
+    return {"devices": None if devices is None else len(devices),
+            "one_card_plain_path": devices is None,
+            "sha256": digests[True], "traces": len(SHARDED_RATES)
+            * SHARDED_REPS, "tasks": SHARDED_TASKS}, counts
+
+
+def run_sharded(device) -> dict:
+    """Phase 8g: the sharded substrate on a process group of one rank
+    (NCCL, through a file:// store), alone on the card. Returns the
+    launch counts of the meshed serve and the sweep."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import transformer
+
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    try:
+        dev = mesh_mod.init_distributed(
+            device, init_method=f"file://{store}/store", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=120))
+        backend = dist.get_backend()
+        require(backend == "nccl", f"sharded: backend {backend}")
+        mesh3 = mesh_mod.make_mesh((1, 1, 1), ("pod", "data", "model"),
+                                   device=dev)
+        mesh2 = mesh_mod.make_mesh((1, 1), ("data", "model"), device=dev)
+        # the embedding's backward accumulates with atomics unless asked
+        # not to: two runs of a step agree bit for bit only under
+        # deterministic algorithms (CUBLAS_WORKSPACE_CONFIG is set by
+        # group_sharded before the first cuBLAS call)
+        # qwen1.5-0.5b's parameters, drawn once (torch.Generator seed 0):
+        # each training run starts from a copy, the serve steps read them
+        init = transformer.init(
+            get_config(TRAIN_ARCH),
+            torch.Generator(device=dev).manual_seed(0), device=dev)
+        torch.use_deterministic_algorithms(True)
+        try:
+            train = sharded_train(dev, mesh3, init)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        torch.cuda.empty_cache()
+        serve, counts = sharded_serve(dev, mesh2, init)
+        del init
+        torch.cuda.empty_cache()
+        collectives = sharded_collectives(dev)
+        sweep, sweep_counts = sharded_sweep(dev)
+        for k, v in sweep_counts.items():
+            counts[k] = counts.get(k, 0) + v
+        dist.destroy_process_group()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    emit("sharded", world_size=1, backend=backend, train=train,
+         serve=serve, collectives=collectives, sweep=sweep,
+         seconds=time.perf_counter() - t0, card=nvidia_smi(),
+         note="one card: collectives across cards wait for a machine "
+              "with more than one")
+    return counts
+
+
+# --------------------------------------------------------------------------
+# The sharded substrate across cards (--mesh-check, under torchrun)
+# --------------------------------------------------------------------------
+MESH_CHECK_ARCH = "internlm2-1.8b"    # the CPU tests' setup, float32
+MESH_CHECK_B, MESH_CHECK_SEQ, MESH_CHECK_CLIP = 8, 32, 0.05
+
+
+def _worst(x: float) -> float:
+    """The largest of every rank's ``x``."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.tensor([x], dtype=torch.float64,
+                     device=torch.device("cuda", torch.cuda.current_device())
+                     if torch.cuda.is_available() else "cpu")
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t)
+
+
+def _of_max(a, b) -> float:
+    """max|a - b| over max|b| of two tensors."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _check_meshes(world: int) -> list:
+    """(name, shape, axes): the host mesh (world / 2, 2) and, when four
+    divide the world, (2, world / 4, 2) over (pod, data, model)."""
+    out = [(f"{world // 2}x2", (world // 2, 2), ("data", "model"))]
+    if world % 4 == 0:
+        out.append((f"2x{world // 4}x2", (2, world // 4, 2),
+                    ("pod", "data", "model")))
+    return out
+
+
+def mesh_train_f32(device, world: int) -> dict:
+    """The sharded train step against the one-device step on each rank's
+    own card: internlm2-1.8b's smoke config in float32, batch 8, seq 32,
+    2 microbatches, AdamW(lr=1e-3), with and without clipping."""
+    import torch
+
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.datapipe.synthetic import SyntheticLM
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TRAIN_IMPLS, make_grad_step, \
+        make_train_step
+
+    cfg = get_smoke_config(MESH_CHECK_ARCH).scaled(
+        **TRAIN_IMPLS, dtype="float32", param_dtype="float32")
+    batch = SyntheticLM(cfg, batch=MESH_CHECK_B, seq=MESH_CHECK_SEQ,
+                        accum=2).batch_at(0)
+    params = transformer.init(cfg, seed=0, device=device)
+    grads, _ = make_grad_step(cfg, device)(params, batch)
+    out = {}
+    for name, shape, axes in _check_meshes(world):
+        mesh = make_mesh(shape, axes, device=device)
+        for clip in (1.0, MESH_CHECK_CLIP):
+            opt = AdamW(lr=1e-3, clip_norm=clip)
+            p1, o1, m1 = make_train_step(cfg, opt, donate=False,
+                                         device=device)(
+                params, opt.init(params), batch)
+            step = make_train_step(cfg, opt, mesh, donate=False)
+            pd = sh.distribute(params, step.param_shardings)
+            gd, _ = step.sharded_grads(pd, batch)
+            p8, o8, m8 = step(pd, opt.init(pd), batch)
+            loss_rel = abs(float(m8["loss"]) - float(m1["loss"])) / abs(
+                float(m1["loss"]))
+            norm_rel = abs(float(m8["grad_norm"]) - float(
+                m1["grad_norm"])) / float(m1["grad_norm"])
+            g_err = max(_of_max(a, b) for a, b in zip(
+                tr.leaves(sh.gather(gd)), tr.leaves(grads)))
+            p_err = max(float((a.float() - b.float()).abs().max())
+                        for a, b in zip(tr.leaves(sh.gather(p8)),
+                                        tr.leaves(p1)))
+            mu_err = max(_of_max(a, b) for a, b in zip(
+                tr.leaves(sh.gather(o8.mu)), tr.leaves(o1.mu)))
+            row = {"loss_rel": _worst(loss_rel),
+                   "grad_norm_rel": _worst(norm_rel),
+                   "grads_of_max": _worst(g_err),
+                   "params_max_abs": _worst(p_err),
+                   "mu_of_max": _worst(mu_err),
+                   "grad_norm": float(m1["grad_norm"])}
+            out[f"{name} clip={clip}"] = row
+            require(row["loss_rel"] <= 1e-6 and row["grad_norm_rel"] <= 1e-5
+                    and row["grads_of_max"] <= 1e-5
+                    and row["params_max_abs"] <= 2e-3
+                    and row["mu_of_max"] <= 1e-5,
+                    f"mesh_check train {name} clip={clip}: {row}")
+    return out
+
+
+def mesh_train_whole_batch(device, world: int) -> dict:
+    """The sharded step where a rank's mean is not its share of the
+    batch's loss, against each rank's one-device step: granite-moe's
+    smoke config (its experts route the whole batch) and internlm2's
+    under a mask that leaves each rank another token count, float32, on
+    the (world / 2, 2) mesh."""
+    import numpy as np
+
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.datapipe.synthetic import SyntheticLM
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TRAIN_IMPLS, make_grad_step, \
+        make_train_step
+
+    mesh = make_mesh((world // 2, 2), ("data", "model"), device=device)
+    out = {}
+    for name, arch, masked in (("moe", "granite-moe-3b-a800m", False),
+                               ("mask", MESH_CHECK_ARCH, True)):
+        cfg = get_smoke_config(arch).scaled(
+            **TRAIN_IMPLS, dtype="float32", param_dtype="float32")
+        batch = SyntheticLM(cfg, batch=MESH_CHECK_B, seq=MESH_CHECK_SEQ,
+                            accum=2).batch_at(0)
+        if masked:
+            batch["mask"] = (np.random.default_rng(1).random(
+                batch["tokens"].shape) < 0.6).astype(np.float32)
+        params = transformer.init(cfg, seed=0, device=device)
+        opt = AdamW(lr=1e-3)
+        grads, _ = make_grad_step(cfg, device)(params, batch)
+        p1, _, m1 = make_train_step(cfg, opt, donate=False,
+                                    device=device)(
+            params, opt.init(params), batch)
+        step = make_train_step(cfg, opt, mesh, donate=False)
+        pd = sh.distribute(params, step.param_shardings)
+        gd, _ = step.sharded_grads(pd, batch)
+        pm, _, mm = step(pd, opt.init(pd), batch)
+        row = {
+            "loss_rel": _worst(abs(float(mm["loss"]) - float(m1["loss"]))
+                               / abs(float(m1["loss"]))),
+            "grad_norm_rel": _worst(abs(float(mm["grad_norm"]) - float(
+                m1["grad_norm"])) / float(m1["grad_norm"])),
+            "grads_of_max": _worst(max(_of_max(a, b) for a, b in zip(
+                tr.leaves(sh.gather(gd)), tr.leaves(grads)))),
+            "params_max_abs": _worst(max(
+                float((a - b).abs().max()) for a, b in zip(
+                    tr.leaves(sh.gather(pm)), tr.leaves(p1))))}
+        out[name] = row
+        require(row["loss_rel"] <= 1e-6 and row["grad_norm_rel"] <= 1e-5
+                and row["grads_of_max"] <= 1e-5
+                and row["params_max_abs"] <= 2e-3,
+                f"mesh_check whole-batch train {name}: {row}")
+    return out
+
+
+def mesh_sweep(device) -> dict:
+    """run_sweep(shard=True) over every visible card, in this one
+    process, against shard=False on its own card, bit for bit: paper_x8
+    FELARE under fair_spill on the map kernels (map_decide, evict_stats,
+    balance_scan) and flat ELARE on phase1_map, 2 x 3 traces of 200
+    tasks (6 traces: padded to a multiple of the cards)."""
+    import torch
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.experiments import SweepSpec, run_sweep
+
+    devices = sh.sweep_devices(device)
+    n = torch.cuda.device_count()
+    require(devices is not None and len(devices) == n > 1,
+            f"mesh_check sweep: devices {devices} of {n}")
+    runs = (("paper_x8 FELARE fair_spill", "FELARE",
+             ("map_decide", "evict_stats", "balance_scan"),
+             SweepSpec(system="paper_x8", dispatcher="fair_spill",
+                       rates=(16.0, 24.0), reps=3, n_tasks=200,
+                       heuristics=("FELARE",), seed=0,
+                       use_fused_map=True)),
+            ("paper ELARE phase1", "ELARE", ("phase1_map",),
+             SweepSpec(system="paper", rates=SHARDED_RATES, reps=3,
+                       n_tasks=200, heuristics=("ELARE",), seed=0,
+                       use_fused_phase1=True)))
+    out = {"devices": len(devices)}
+    for label, heuristic, kernels, spec in runs:
+        row = {}
+        for shard in (False, True):
+            reset_counts()
+            t0 = time.perf_counter()
+            res = run_sweep(spec, device=device, shard=shard)
+            row[f"shard={shard}"] = {
+                "sha256": metrics_digest(res, heuristic),
+                "seconds": time.perf_counter() - t0,
+                "launches": {k: read_counts()[k] for k in kernels}}
+        out[label] = row
+        got, want = row["shard=True"], row["shard=False"]
+        require(got["sha256"] == want["sha256"],
+                f"mesh_check sweep {label}: shard=True differs: {row}")
+        require(all(got["launches"][k] > 0 for k in kernels),
+                f"mesh_check sweep {label}: launches {got['launches']}")
+    return out
+
+
+def mesh_serve_f32(device, world: int) -> dict:
+    """Prefill (8 x 16 tokens) and 2 greedy decode steps through
+    make_serve_steps(cfg, mesh) against the unmeshed steps on each rank's
+    card, on the kernels: KV heads split over model on (world / 2, 2),
+    the sequence on (1, world) (2 KV heads do not divide it)."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.train import make_serve_steps
+
+    cfg = get_smoke_config(MESH_CHECK_ARCH).scaled(dtype="float32",
+                                                   param_dtype="float32")
+    params = transformer.init(cfg, seed=0, device=device)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (MESH_CHECK_B, 16),
+                                     generator=gen)}
+    max_seq = 64
+    pre, dec = make_serve_steps(cfg, device=device)
+    reset_counts()
+    logits, cache = pre(params, batch, max_seq=max_seq)
+    want = [logits]
+    for _ in range(2):
+        logits, cache = dec(params, cache, logits.argmax(-1))
+        want.append(logits)
+    want_counts = read_counts()
+    out = {}
+    for name, shape in ((f"{world // 2}x2", (world // 2, 2)),
+                        (f"1x{world}", (1, world))):
+        mesh = make_mesh(shape, ("data", "model"), device=device)
+        pd = sh.distribute(params, sh.param_shardings(params, mesh, cfg))
+        prefill_for, decode_for = make_serve_steps(cfg, mesh)
+        reset_counts()
+        logits, cache = prefill_for(batch, max_seq)(pd, batch)
+        got = [logits]
+        for _ in range(2):
+            toks = logits.full_tensor().argmax(-1)
+            logits, cache = decode_for(cache, toks)(pd, cache, toks)
+            got.append(logits)
+        counts = read_counts()
+        err = max(_of_max(g.full_tensor(), w) for g, w in zip(got, want))
+        spec = sh.cache_sharding(cfg, mesh, cache)["k"].spec
+        out[name] = {"logits_of_max": _worst(err), "k_spec": spec,
+                     "flash": counts["flash_attention"],
+                     "decode": counts["decode_attention"]}
+        require(out[name]["logits_of_max"] <= 1e-5,
+                f"mesh_check serve {name}: {out[name]}")
+        for k in ("flash_attention", "decode_attention"):
+            require(counts[k] == want_counts[k] > 0,
+                    f"mesh_check serve {name}: {k} {counts[k]} meshed, "
+                    f"{want_counts[k]} unmeshed")
+    return out
+
+
+def mesh_collectives(device, world: int) -> dict:
+    """Ring attention, gpipe (and its gradient) and the compressed mean
+    over every rank against what they compute on one card."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed.pipeline import gpipe, stack_stages
+    from repro_torch.distributed.ring_attention import ring_attention
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import sdpa_plain
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    q, k, v = (torch.randn((2, 64 * world, 4, 64), generator=gen,
+                           device=device) * 0.5 for _ in range(3))
+    ring_mesh = make_mesh((world,), ("model",), device=device)
+    ring = {}
+    for causal in (True, False):
+        got = ring_attention(q, k, v, ring_mesh, "model", causal=causal)
+        ring[str(causal)] = _worst(float((got.full_tensor() - sdpa_plain(
+            q, k, v, causal=causal)).abs().max()))
+    pipe = make_mesh((world,), ("pipe",), device=device)
+    W = (torch.randn((2 * world, 64, 64), generator=gen, device=device)
+         * 64 ** -0.5).requires_grad_(True)
+    xs = torch.randn((6, 8, 64), generator=gen, device=device)
+
+    def stage(Ws, x):
+        for i in range(Ws.shape[0]):
+            x = torch.tanh(x @ Ws[i])
+        return x
+    got = gpipe(stage, pipe, "pipe")(stack_stages({"w": W}, world)["w"], xs)
+    g_pipe, = torch.autograd.grad((got ** 2).mean(), [W])
+    want = torch.stack([stage(W, xs[m]) for m in range(xs.shape[0])])
+    g_seq, = torch.autograd.grad((want ** 2).mean(), [W])
+    rank = dist.get_rank()
+    per = W.shape[0] // world
+    mine = slice(rank * per, (rank + 1) * per)
+    pipe_err = _worst(float((got - want).detach().abs().max()))
+    grad_err = _worst(float((g_pipe[mine] - g_seq[mine]).abs().max()))
+    pod = make_mesh((world,), ("pod",), device=device)
+    g = torch.randn((4, 1024), generator=torch.Generator(
+        device=device).manual_seed(100 + rank), device=device)
+    mean, res = comp.crosspod_mean_compressed({"g": g}, {
+        "g": torch.zeros_like(g)}, pod.get_group("pod"))
+    every = [torch.empty_like(g) for _ in range(world)]
+    dist.all_gather(every, g)
+    # compression.py:47-66 on the gathered gradients, on this card
+    s = max((torch.clamp(x.abs().max(), min=1e-12) / 127.0 for x in every),
+            key=float)
+    qs = [torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+          for x in every]
+    total = torch.stack([x.to(torch.int32) for x in qs]).sum(0)
+    comp_equal = bool(torch.equal(mean["g"], total.float() * s / world)
+                      and torch.equal(res["g"], g - qs[rank].float() * s))
+    flag = torch.tensor([0.0 if comp_equal else 1.0], device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    out = {"ring_max_abs_err": ring, "gpipe_max_abs_err": pipe_err,
+           "gpipe_grad_max_abs_err": grad_err,
+           "compressed_bit_for_bit": float(flag) == 0.0}
+    require(max(ring.values()) <= 1e-5 and pipe_err <= 1e-5
+            and grad_err <= 1e-5 and out["compressed_bit_for_bit"],
+            f"mesh_check collectives: {out}")
+    return out
+
+
+def mesh_train_full(device, world: int) -> dict:
+    """8f's training cell (qwen1.5-0.5b, bf16, 8 x 512 in 2 microbatches)
+    for 3 steps on the (world / 2, 2) mesh, each rank's one-device run of
+    the same steps beside it: ms per step and peak memory both ways."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.datapipe.synthetic import SyntheticLM
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TRAIN_IMPLS, make_train_step
+
+    cfg = get_config(TRAIN_ARCH).scaled(**TRAIN_IMPLS)
+    opt = AdamW(lr=TRAIN_LR)
+    data = SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                       accum=TRAIN_ACCUM)
+    mesh = make_mesh((world // 2, 2), ("data", "model"), device=device)
+    out = {}
+    for label in ("single", "meshed"):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(device)
+        params = transformer.init(cfg, seed=0, device=device)
+        if label == "meshed":
+            step = make_train_step(cfg, opt, mesh)
+            params = sh.distribute(params, step.param_shardings)
+        else:
+            step = make_train_step(cfg, opt, device=device)
+        state = opt.init(params)
+        torch.cuda.reset_peak_memory_stats(device)
+        ms, losses = [], []
+        for i in range(SHARDED_TRAIN_STEPS):
+            batch = data.batch_at(i)
+            (params, state, m), t = _timed(lambda: step(params, state,
+                                                        batch))
+            ms.append(t)
+            losses.append(float(m["loss"]))
+        out[label] = {"ms_per_step": ms, "loss": losses,
+                      "peak_bytes": torch.cuda.max_memory_allocated(device)
+                      - base}
+        del params, state
+    first = abs(out["meshed"]["loss"][0] - out["single"]["loss"][0]) / abs(
+        out["single"]["loss"][0])
+    out["first_loss_rel"] = _worst(first)
+    require(all(map(math.isfinite, out["meshed"]["loss"]))
+            and out["first_loss_rel"] <= 1e-3,
+            f"mesh_check train_full: {out}")
+    return out
+
+
+def mesh_check(device=None) -> int:
+    """``torchrun --nproc-per-node N chip_smoke.py --mesh-check``: the
+    sharded substrate across N cards (N even, NCCL), each check against
+    what one card computes; rank 0 prints one ``mesh_check`` line with
+    the cards' name and power limit."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as mesh_mod
+
+    require("WORLD_SIZE" in os.environ, "--mesh-check runs under torchrun")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    dev = mesh_mod.init_distributed(
+        device, timeout=datetime.timedelta(seconds=300))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    require(world > 1 and world % 2 == 0,
+            f"--mesh-check wants an even number of ranks, not {world}")
+    if rank == 0 and dev.type == "cuda":
+        build.build(("flash_attention", "decode_attention", "map_fused",
+                     "phase1_map", "balance_scan"))
+    dist.barrier()
+    out = {"train_f32": mesh_train_f32(dev, world),
+           "train_whole_batch": mesh_train_whole_batch(dev, world),
+           "serve_f32": mesh_serve_f32(dev, world),
+           "collectives": mesh_collectives(dev, world)}
+    if dev.type == "cuda":
+        out["train_full"] = mesh_train_full(dev, world)
+        if rank == 0:       # one process over every card; the rest wait
+            out["sweep"] = mesh_sweep(dev)
+        dist.barrier()
+    if rank == 0:
+        emit("mesh_check", world_size=world, backend=dist.get_backend(),
+             seconds=time.perf_counter() - t0, card=nvidia_smi(), **out)
+    dist.destroy_process_group()
+    return 0
 
 
 # --------------------------------------------------------------------------
@@ -4003,7 +4801,7 @@ def add_serving_front_times(rows) -> None:
 # (granite-moe-3b's decode step 843.9 ms against 78.6 ms alone on an
 # NVIDIA H100 80GB HBM3 at 700 W).
 SWEEP_GROUPS = ("fed", "fleets", "scenarios", "observe", "flat", "network")
-GROUPS = ("families",) + SWEEP_GROUPS
+GROUPS = ("families", "sharded") + SWEEP_GROUPS
 
 
 def metrics_digest(result, heuristic: str) -> str:
@@ -4099,6 +4897,14 @@ def group_families(device, args) -> dict:
             "by_shape": by_shape}
 
 
+def group_sharded(device, args) -> dict:
+    """Phase 8g: the sharded substrate at world size 1, in a process of its
+    own (the training part's deterministic cuBLAS wants its workspace
+    setting before the process's first cuBLAS call)."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    return {"paths": {"sharded": run_sharded(device)}}
+
+
 def group_fleets(device, args) -> dict:
     """Phase 20 on the synthetic federations: mixed_sites and
     federated-skew (paper_x2)."""
@@ -4186,6 +4992,10 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="build, check and time the kernels (phases 1-5), "
                          "then stop without a result line")
+    ap.add_argument("--mesh-check", action="store_true",
+                    help="under torchrun on N > 1 cards: the sharded "
+                         "substrate across them (not part of the run "
+                         "without arguments)")
     ap.add_argument("--group", choices=GROUPS,
                     help="run one group of the sweep phases (the script "
                          "starts them all itself)")
@@ -4194,6 +5004,8 @@ def main(argv=None) -> int:
                          "other families' shapes (the script starts these "
                          "processes itself)")
     args = ap.parse_args(argv)
+    if args.mesh_check:
+        return mesh_check()
     if args.group:
         return run_group(args)
     if args.serving_front_times:
@@ -4317,12 +5129,13 @@ def main(argv=None) -> int:
     paths = {"flat": {}, "federated": {}, "serve": serve, "observed": {},
              "faults": {}, "network": {}, "scenarios": {},
              "serve_dense": {}, "router": router, "serve_families": {},
-             "serve_edge": {}, "train": {}}
+             "serve_edge": {}, "train": {}, "sharded": {}}
     for counts in dense.values():
         for k, v in counts.items():
             paths["serve_dense"][k] = paths["serve_dense"].get(k, 0) + v
     shape_counts = {SERVE_ARCH: serve, "router": router, **dense}
     results = run_groups(args, ("families",))
+    results.update(run_groups(args, ("sharded",)))
     results.update(run_groups(args, SWEEP_GROUPS))
     # the flat FELARE sweep of phase 9 and the unobserved one of phase 13
     # (whose Metrics phases 13 and 15 hold against the observed and plain

@@ -14,6 +14,14 @@ bfloat16 is read back from its bits without ``ml_dtypes``. Leaves are
 matched by name at restore, so a tree of nested dicts and an
 ``AdamWState`` in the port names its leaves as the reference's pytree
 does (``['p']['embed']['tok']``, ``['o'].mu['embed']['tok']``).
+
+Sharded trees: :func:`save` of a tree with ``DTensor`` leaves is a
+collective (every rank calls it): the leaves are gathered whole and rank
+0 alone writes them, in the same layout. :func:`restore` with
+``shardings`` (a matching tree of ``distributed.sharding.Layout`` s)
+returns ``DTensor`` s, each rank keeping its own shard of the whole
+leaves it reads: a checkpoint saved on one mesh restores on any other,
+bit for bit.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree as tr
 
@@ -84,9 +94,19 @@ def save(path, step: int, tree, *,
     """Write the checkpoint of ``step``. Every leaf is copied to host
     memory before this returns, so the caller may update its tensors in
     place at once; ``blocking=False`` then writes the files from a
-    background thread and returns it (join it before the next save)."""
+    background thread and returns it (join it before the next save).
+
+    ``DTensor`` leaves are gathered whole (every rank of their mesh calls
+    ``save``); only rank 0 writes, and a blocking save returns on every
+    rank once the checkpoint is published. Other ranks return ``None``.
+    """
+    sharded = any(isinstance(x, DTensor) for x in tr.leaves(tree))
     names, arrs, dtypes, shapes = [], [], [], []
     for name, leaf in tr.named_leaves(tree):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
+        if sharded and dist.get_rank() != 0:
+            continue
         a, dt, shp = _to_host(leaf)
         names.append(name)
         arrs.append(a)
@@ -113,8 +133,14 @@ def save(path, step: int, tree, *,
             shutil.rmtree(final)
         tmp.rename(final)  # atomic publish
 
+    if sharded and dist.get_rank() != 0:
+        if blocking:
+            dist.barrier()
+        return None
     if blocking:
         _write()
+        if sharded:
+            dist.barrier()
         return None
     t = threading.Thread(target=_write, daemon=True)
     t.start()
@@ -137,13 +163,16 @@ def _from_host(a: np.ndarray, dtype: str, shape) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).reshape(shape))
 
 
-def restore(path, target, *, step: int | None = None, verify: bool = True,
-            device=None):
+def restore(path, target, *, step: int | None = None, shardings=None,
+            verify: bool = True, device=None):
     """Restore into the structure of ``target`` (a tree of tensors, on any
     device, ``meta`` included). Returns (tree, step): the leaves on
     ``device`` (``None``: the CPU), each with the shape and dtype of its
-    target leaf. Raises IOError on a corrupt container or digest, KeyError
-    on a missing leaf and ValueError on a leaf of another shape or dtype.
+    target leaf. ``shardings``: a matching tree of
+    ``distributed.sharding.Layout`` s; the leaves then come back as
+    ``DTensor`` s in them, on their mesh's device (every rank reads the
+    files). Raises IOError on a corrupt container or digest, KeyError on
+    a missing leaf and ValueError on a leaf of another shape or dtype.
     """
     base = pathlib.Path(path)
     if step is None:
@@ -168,12 +197,22 @@ def restore(path, target, *, step: int | None = None, verify: bool = True,
         raise KeyError(f"checkpoint missing leaves: {missing[:5]}...")
     dev = torch.device("cpu") if device is None else torch.device(device)
 
-    def load(name, want):
+    def _checked(name, want):
         t = _from_host(*by_name[name])
         if tuple(t.shape) != tuple(want.shape) or t.dtype != want.dtype:
             raise ValueError(f"{name}: checkpoint holds {t.dtype} "
                              f"{tuple(t.shape)}, the target {want.dtype} "
                              f"{tuple(want.shape)}")
-        return t.to(dev)
+        return t
 
-    return tr.map_named(load, target), step
+    def load(name, want):
+        return _checked(name, want).to(dev)
+
+    if shardings is None:
+        return tr.map_named(load, target), step
+    from repro_torch.distributed import sharding as sh
+
+    layouts = dict(zip((n for n, _ in tr.named_leaves(target)),
+                       tr.leaves(shardings)))
+    return tr.map_named(lambda name, want: sh.shard(
+        _checked(name, want), layouts[name]), target), step

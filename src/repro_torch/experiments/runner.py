@@ -7,6 +7,7 @@ the same traces.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -15,6 +16,7 @@ import torch
 from repro_torch.core import engine, observe
 from repro_torch.core.device import resolve_device
 from repro_torch.core.types import SystemSpec, Trace
+from repro_torch.distributed import sharding
 from repro_torch.experiments.results import SweepResult
 from repro_torch.experiments.spec import SweepSpec
 
@@ -43,30 +45,63 @@ def simulate_sweep(traces: Trace, system: SystemSpec, heuristic_names, *,
     numpy array (H, B, ...). When ``run_info`` is a dict, it receives
     per heuristic the wall seconds, the number of batched loop
     iterations and ``trace_label`` (``run_sweep`` passes the scenario's
-    name).
+    name). On a CUDA device the simulation runs with that device current,
+    so the kernels' launchers find their streams on it.
     """
     dev = resolve_device(device)
     per_h = []
-    for name in heuristic_names:
-        t0 = time.perf_counter()
-        it0 = engine.COUNTS["loop_iterations"]
-        out = engine.simulate_batch(
-            traces, system, name, observers=observers, max_steps=max_steps,
-            dispatcher=dispatcher, dynamics=dynamics, network=network,
-            use_fused_map=use_fused_map,
-            use_fused_phase1=use_fused_phase1, device=dev)
-        per_h.append(observe.tree_map(lambda x: x.cpu().numpy(), out))
-        if run_info is not None:
-            run_info[name] = {
-                "seconds": time.perf_counter() - t0,
-                "loop_iterations": engine.COUNTS["loop_iterations"] - it0,
-                "scenario": trace_label,
-            }
+    with (torch.cuda.device(dev) if dev.type == "cuda"
+          else contextlib.nullcontext()):
+        for name in heuristic_names:
+            t0 = time.perf_counter()
+            it0 = engine.COUNTS["loop_iterations"]
+            out = engine.simulate_batch(
+                traces, system, name, observers=observers,
+                max_steps=max_steps, dispatcher=dispatcher,
+                dynamics=dynamics, network=network,
+                use_fused_map=use_fused_map,
+                use_fused_phase1=use_fused_phase1, device=dev)
+            per_h.append(observe.tree_map(lambda x: x.cpu().numpy(), out))
+            if run_info is not None:
+                run_info[name] = {
+                    "seconds": time.perf_counter() - t0,
+                    "loop_iterations": (engine.COUNTS["loop_iterations"]
+                                        - it0),
+                    "scenario": trace_label,
+                }
     return observe.tree_map(lambda *xs: np.stack(xs), *per_h)
 
 
+def _simulate_sharded(flat: Trace, devices, **kw):
+    """``simulate_sweep`` of the flat batch split over ``devices``: the
+    batch padded to a multiple of their count (padding repeats trace 0),
+    each slice simulated on its own device in turn, the results joined
+    on the batch axis and the padding sliced off (each slice with its
+    device current, ``simulate_sweep``). The traces are independent, so
+    the result is the unsharded one bit for bit."""
+    run_info = kw.pop("run_info", None)
+    B = flat.arrival.shape[0]
+    padded = sharding.pad_batch(flat, len(devices))
+    n = padded.arrival.shape[0] // len(devices)
+    outs, infos = [], []
+    for i, dev in enumerate(devices):
+        part = Trace(*(x[i * n:(i + 1) * n].to(dev) for x in padded))
+        info: dict = {}
+        outs.append(simulate_sweep(part, device=dev, run_info=info, **kw))
+        infos.append(info)
+    if run_info is not None:
+        for name in infos[0]:
+            run_info[name] = {
+                "seconds": sum(i[name]["seconds"] for i in infos),
+                "loop_iterations": sum(i[name]["loop_iterations"]
+                                       for i in infos),
+                "scenario": infos[0][name]["scenario"]}
+    return observe.tree_map(
+        lambda *xs: np.concatenate(xs, axis=1)[:, :B], *outs)
+
+
 def run_sweep(spec: SweepSpec, *, traces: Trace | None = None,
-              device=None) -> SweepResult:
+              device=None, shard: bool = False) -> SweepResult:
     """Execute a full batched sweep on ``device`` (``None`` = CUDA).
 
     Builds the (rates x reps) trace stack of the spec's scenario from
@@ -76,6 +111,12 @@ def run_sweep(spec: SweepSpec, *, traces: Trace | None = None,
     under every heuristic and wraps the per-trace Metrics and the
     observers' results, reshaped to (H, R, K, ...), in a
     :class:`SweepResult`.
+
+    ``shard=True`` splits the (R*K) trace batch over every visible CUDA
+    device (``distributed.sharding.sweep_devices``), one slice per
+    device: an execution detail, not part of the spec. Results are
+    bit-identical to the unsharded sweep, and with one device it is the
+    plain path, so a spec stays reproducible whatever the topology.
     """
     dev = resolve_device(device)
     system = spec.resolve_system()
@@ -89,14 +130,20 @@ def run_sweep(spec: SweepSpec, *, traces: Trace | None = None,
                    for x in traces))
     run_info: dict = {}
     observers = spec.resolve_observers()
-    out = simulate_sweep(
-        flat, system, spec.heuristics, dispatcher=spec.dispatcher,
+    kw = dict(
+        system=system, heuristic_names=spec.heuristics,
+        dispatcher=spec.dispatcher,
         dynamics=spec.resolve_dynamics(), network=spec.resolve_network(),
         use_fused_phase1=spec.use_fused_phase1,
         use_fused_map=spec.use_fused_map, max_steps=spec.max_steps,
-        device=dev, observers=observers, run_info=run_info,
+        observers=observers, run_info=run_info,
         trace_label=(spec.scenario if isinstance(spec.scenario, str)
                      else "<custom scenario>"))
+    devices = sharding.sweep_devices(dev) if shard else None
+    if devices is None:
+        out = simulate_sweep(flat, device=dev, **kw)
+    else:
+        out = _simulate_sharded(flat, devices, **kw)
     metrics, aux = out if observers else (out, {})
     H = len(spec.heuristics)
     metrics, aux = observe.tree_map(

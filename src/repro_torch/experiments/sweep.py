@@ -31,6 +31,7 @@ import time
 from repro_torch import scenarios
 from repro_torch.core import dispatch, faults, network, observe, policy
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.experiments.results import SweepResult
 from repro_torch.experiments.runner import run_sweep
 from repro_torch.experiments.spec import (
@@ -115,6 +116,11 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
                     help="run the whole map decision and the dispatcher's "
                          "balance walk through the map_fused kernels "
                          "(map_decide, evict_stats, balance_scan)")
+    ap.add_argument("--shard", action="store_true",
+                    help="split the (rate x replicate) trace batch over "
+                         "every visible CUDA device; bit-identical to the "
+                         "unsharded sweep, and the plain path on one "
+                         "device")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions on the CPU)")
@@ -302,13 +308,19 @@ def main(argv=None) -> SweepResult:
         fed += f" dynamics={spec.dynamics}"
     if spec.network != "none":
         fed += f" network={spec.network}"
+    shard_note = ""
+    if args.shard:
+        devices = sharding.sweep_devices(args.device)
+        shard_note = (f" sharded over {len(devices)} devices" if devices
+                      else " (--shard: single device, running unsharded)")
     print(f"sweep: {len(spec.heuristics)} heuristics x "
           f"{len(spec.rates)} rates x {spec.reps} reps "
           f"({n} traces of {spec.n_tasks} tasks) on system={system_label}"
-          f" scenario={args.scenario}{fed} device={args.device}",
+          f" scenario={args.scenario}{fed} device={args.device}"
+          f"{shard_note}",
           flush=True)
     t0 = time.perf_counter()
-    result = run_sweep(spec, device=args.device)
+    result = run_sweep(spec, device=args.device, shard=args.shard)
     dt = time.perf_counter() - t0
     print(f"simulated {n} traces in {dt:.1f}s\n")
     print_summary(result)

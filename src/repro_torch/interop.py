@@ -133,7 +133,7 @@ def _tensor_from_array(a, dtype: torch.dtype, where: str, device):
     return t.to(device)
 
 
-def model_params_from_arrays(cfg, tree, device=None) -> dict:
+def model_params_from_arrays(cfg, tree, device=None, mesh=None) -> dict:
     """The port's parameters from the reference's parameter tree.
 
     ``tree`` is the JAX package's pytree for ``cfg`` as nested dicts of
@@ -142,9 +142,17 @@ def model_params_from_arrays(cfg, tree, device=None) -> dict:
     the port's shape and dtype, and nothing else: a missing or extra key,
     a shape or a dtype that differs raises. Values are carried bit for
     bit, bfloat16 included. Returns nested dicts of tensors on ``device``
-    (``None`` = CUDA).
+    (``None`` = CUDA), or, given a ``DeviceMesh`` (every rank calls it
+    with the same arrays), ``DTensor`` s in the reference's layout
+    (``distributed.sharding.param_shardings``) on the mesh's device.
     """
-    return _params_like(cfg, tree, resolve_device(device), None, "params")
+    if mesh is None:
+        return _params_like(cfg, tree, resolve_device(device), None,
+                            "params")
+    from repro_torch.distributed import sharding as sh
+
+    params = _params_like(cfg, tree, torch.device("cpu"), None, "params")
+    return sh.distribute(params, sh.param_shardings(params, mesh, cfg))
 
 
 def _params_like(cfg, tree, dev, dtype, root: str) -> dict:
@@ -171,7 +179,7 @@ def _params_like(cfg, tree, dev, dtype, root: str) -> dict:
     return walk(param_spec(cfg), tree, "")
 
 
-def opt_state_from_arrays(cfg, state, device=None):
+def opt_state_from_arrays(cfg, state, device=None, mesh=None):
     """The port's ``AdamWState`` from the reference's.
 
     ``state`` is the JAX package's ``AdamWState`` for ``cfg``'s parameters
@@ -179,16 +187,27 @@ def opt_state_from_arrays(cfg, state, device=None):
     or any object with ``step``, ``mu`` and ``nu``: an int32 scalar and
     two float32 trees shaped like the parameters, checked as
     :func:`model_params_from_arrays` checks those. Values are carried bit
-    for bit, onto ``device`` (``None`` = CUDA).
+    for bit, onto ``device`` (``None`` = CUDA), or, given a
+    ``DeviceMesh``, as ``DTensor`` s in the reference's layout
+    (``distributed.sharding.opt_state_shardings``: mu and nu as the
+    parameters, the step replicated).
     """
     from repro_torch.optim.adamw import AdamWState
 
-    dev = resolve_device(device)
+    dev = torch.device("cpu") if mesh is not None else resolve_device(
+        device)
     step = np.asarray(state.step)
     if step.shape != () or step.dtype != np.int32:
         raise TypeError(f"step: {step.dtype} {step.shape}, expected an "
                         f"int32 scalar")
-    return AdamWState(
+    out = AdamWState(
         step=torch.from_numpy(np.array(step)).to(dev),
         mu=_params_like(cfg, state.mu, dev, torch.float32, "mu"),
         nu=_params_like(cfg, state.nu, dev, torch.float32, "nu"))
+    if mesh is None:
+        return out
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models.transformer import param_shapes
+
+    return sh.distribute(out, sh.opt_state_shardings(param_shapes(cfg),
+                                                     mesh, cfg))

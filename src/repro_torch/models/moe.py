@@ -16,8 +16,16 @@ float32, the gate product ``g`` stays float32 into SiLU, and ``u``, the
 SiLU-gated hidden and the down product are rounded to the activation
 dtype. The expert products are plain large products, taken with
 ``torch.bmm`` as the reference takes them with XLA.
+
+Under :func:`rows_shared` (a sharded step whose batch rows are split over
+data-parallel ranks) each layer routes the whole batch's tokens, as the
+reference's step over the whole batch does: the groups, the capacities
+and the load-balancing loss are the whole batch's, and each rank keeps
+its own rows of the output.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -65,8 +73,35 @@ def _bmm(a, w):
     return torch.bmm(a.float(), w.float()).to(a.dtype)
 
 
+#: ``None``, or the ``(gather, own)`` pair that :func:`rows_shared` sets.
+_SHARED_ROWS = None
+
+
+@contextlib.contextmanager
+def rows_shared(gather, own):
+    """Route every MoE layer's tokens as one batch with the other ranks':
+    ``gather(x)`` gives the whole batch's rows (on every rank, its
+    backward summing over them), ``own(y)`` this rank's rows of the
+    whole batch's output."""
+    global _SHARED_ROWS
+    prev, _SHARED_ROWS = _SHARED_ROWS, (gather, own)
+    try:
+        yield
+    finally:
+        _SHARED_ROWS = prev
+
+
 def moe_apply(cfg: ModelConfig, p, x):
-    """x: (B, S, d) -> ((B, S, d), aux): the load-balancing loss, float32."""
+    """x: (B, S, d) -> ((B, S, d), aux): the load-balancing loss, float32
+    (under :func:`rows_shared`, the whole batch's)."""
+    if _SHARED_ROWS is not None:
+        gather, own = _SHARED_ROWS
+        y, aux = _route(cfg, p, gather(x))
+        return own(y), aux
+    return _route(cfg, p, x)
+
+
+def _route(cfg: ModelConfig, p, x):
     B, S, d = x.shape
     T = B * S
     E, K = cfg.n_experts, cfg.experts_per_token

@@ -1,6 +1,6 @@
 """Training and serving of the port (counterpart of ``repro/train``): the
-chunked LM loss, the single-device train step, the fault-tolerant loop,
-and the serve steps."""
+chunked LM loss, the train step (one device or a mesh), the
+fault-tolerant loop, and the serve steps."""
 from repro_torch.train.loss import chunked_lm_loss, make_loss_fn
 from repro_torch.train.steps import (
     TRAIN_IMPLS,

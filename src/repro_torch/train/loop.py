@@ -52,6 +52,9 @@ def run(job: TrainJob, *, fail_at: dict[int, Exception] | None = None,
     trains to ``job.steps``, checkpoints every ``job.ckpt_every`` steps
     and at the end. Raises the injected failure if the plan says so
     (preemption mid-run). Returns (params, opt_state, history)."""
+    if job.mesh is not None:
+        raise NotImplementedError(
+            "mesh-sharded loop is exercised via launch/train.py")
     cfg = job.cfg
     opt = AdamW(lr=job.lr)
     data = SyntheticLM(cfg, batch=job.batch, seq=job.seq, seed=job.seed,

@@ -75,4 +75,5 @@ def make_loss_fn(cfg, aux_weight: float = 0.01):
         total = loss + aux_weight * aux
         return total, {"loss": loss, "aux": aux, "tokens": count}
 
+    loss_fn.aux_weight = aux_weight
     return loss_fn

@@ -8,6 +8,15 @@ the reference's own traces are carried into the port with
 """
 from __future__ import annotations
 
+import os
+import pathlib
+import pickle
+import subprocess
+import sys
+import tempfile
+import textwrap
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -178,3 +187,98 @@ def port_federated(tspec, traces, heuristic, dispatcher, fused):
     st, _ = run(traces)
     return (interop.metrics_to_numpy(tengine._metrics(st, sysarr)),
             st.site.numpy())
+
+
+# ------------------------------------------------------- process groups
+#: The source tree and this directory: a spawned rank imports the port
+#: and the test module that holds its function from them.
+_SRC = str(pathlib.Path(__file__).resolve().parent.parent / "src")
+_TESTS = str(pathlib.Path(__file__).resolve().parent)
+
+# What each rank runs: join a gloo group through the file:// store, call
+# ``module:function(rank, world, *args)``, pickle its return value. An
+# exception leaves its traceback in the rank's log and a non-zero exit.
+_RANK_MAIN = """
+import datetime, importlib, pathlib, pickle, sys
+target, rank, world, where, timeout = sys.argv[1:6]
+rank, world, where = int(rank), int(world), pathlib.Path(where)
+import torch
+torch.set_num_threads(1)
+import torch.distributed as dist
+from repro_torch.launch import mesh
+mesh.init_distributed("cpu", init_method=f"file://{where}/store", rank=rank,
+                      world_size=world,
+                      timeout=datetime.timedelta(seconds=float(timeout)))
+try:
+    mod, name = target.split(":")
+    fn = getattr(importlib.import_module(mod), name)
+    args = pickle.loads((where / "args.pkl").read_bytes())
+    out = fn(rank, world, *args)
+    (where / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def spawn_group(target: str, world: int, tmp_path, *, args=(),
+                deadline: float = 240.0, timeout: float = 120.0) -> list:
+    """Run ``target`` (``"module:function"``, a function of ``(rank,
+    world, *args)`` in a module that imports neither JAX nor this one)
+    on ``world`` gloo ranks on the CPU, each in a fresh process with one
+    torch thread, joined through a ``file://`` store under ``tmp_path``
+    (no TCP port, so concurrent test workers never collide).
+
+    Returns the ranks' return values in rank order. Each collective
+    gives up after ``timeout`` seconds (the group's own timeout); a rank
+    that fails kills the others at once and its log is raised here; at
+    ``deadline`` seconds every rank is killed and the call raises: a
+    test that spawns a group fails, it never hangs.
+    """
+    where = pathlib.Path(tempfile.mkdtemp(dir=tmp_path, prefix="group_"))
+    (where / "args.pkl").write_bytes(pickle.dumps(tuple(args)))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([_SRC, _TESTS]))
+    logs = [open(where / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK_MAIN, target, str(r), str(world),
+         str(where), str(timeout)],
+        stdout=logs[r], stderr=subprocess.STDOUT, env=env)
+        for r in range(world)]
+    end = time.monotonic() + deadline
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs) and failed is None:
+            failed = next((r for r, p in enumerate(procs)
+                           if p.returncode not in (None, 0)), None)
+            if time.monotonic() > end:
+                raise TimeoutError(f"{target} on {world} ranks passed its "
+                                   f"{deadline:.0f} s deadline")
+            time.sleep(0.05)
+        failed = next((r for r, p in enumerate(procs) if p.returncode),
+                      failed)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    if failed is not None:
+        log = (where / f"rank{failed}.log").read_text()
+        raise RuntimeError(f"{target}: rank {failed} of {world} failed "
+                           f"(exit {procs[failed].returncode}):\n{log}")
+    return [pickle.loads((where / f"rank{r}.pkl").read_bytes())
+            for r in range(world)]
+
+
+def run_reference(body: str, devices: int, timeout: float = 600.0) -> str:
+    """Run ``body`` (Python source) in a fresh process that sees
+    ``devices`` placeholder CPU devices, as the JAX package's own
+    distributed tests do; returns its standard output."""
+    env = dict(os.environ, PYTHONPATH=_SRC, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}")
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(body)],
+                       capture_output=True, text=True, env=env,
+                       timeout=timeout)
+    assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
+    return r.stdout

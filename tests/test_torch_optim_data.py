@@ -303,8 +303,11 @@ def test_training_refuses_the_kernel_paths(impl):
 
 
 def test_train_step_wants_one_device():
+    """Without a mesh the step wants its one device (the card unless the
+    CPU is asked for); a mesh must be a DeviceMesh (the sharded step's
+    tests are in tests/test_torch_distributed.py)."""
     cfg = treg.get_smoke_config("qwen1.5-0.5b").scaled(**TRAIN_IMPLS)
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(cfg, AdamW(), mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device=\"cpu\""):
