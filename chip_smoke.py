@@ -15,8 +15,10 @@ Phases, one JSON line each; any failed check raises, so the script
 exits non-zero and prints no result line. Phases 1-8c run in this order
 in this process; phases 8d-8f (the other model families' serving, the
 edge example and training) in a process of their own, alone on the
-card; phase 8g (the sharded substrate) in another, alone; then
-phases 9-20 in six processes at once on the same card
+card; phase 8g (the sharded substrate) in another, alone; phase 8h (the
+roofline) in another, alone on the card (its dry-run cell in a CPU
+process of its own); then phases 9-20 in six processes at once on the
+same card, with 8h (d), the examples, in a seventh
 (``SWEEP_GROUPS``: the flat sweep; the flat sweep observed and the
 faulted runs' parity; the paper_x8 sweeps, observed and faulted; the
 tiered_x4 sweep and the network; the workload scenarios and the flat
@@ -231,6 +233,37 @@ launch counts, and their lines arrive interleaved:
               FELARE spec (2 rates x 3 reps x 200 tasks) equal to
               shard=False by sha256; one line with the card's name and
               power limit;
+  8h. roofline (its own process, alone; ``chip_smoke.py --group
+              roofline``) (a) every row of PERF.md's kernel table: the
+              bound of the kernel's cost rule (``kernels/*/ops.py``, the
+              roofline walker's count, rates from ``roofline/hw.py``)
+              beside the hand count the timing phases used before the rules,
+              with the ratio; flash and decode attention timed at 8g's
+              qwen1.5-0.5b serve shape (16 heads of 64, 8 x 1024 tokens,
+              the cache at 1024 + 1 of 1027 rows): device, eager, plain,
+              one scaled_dot_product_attention call, the rule's bound;
+              (b) the roofline share of whole steps: 8f's training cell
+              (qwen1.5-0.5b, 8 x 512 tokens in 2 microbatches, remat) and
+              phase 7's zamba2-2.7b prefill (8 x 1024) and decode step,
+              each walked once on the card (the train step also on meta:
+              the same counts), then the median of 5 steps or calls after
+              2 (host clock around a synchronize): walker FLOPs and
+              bytes, t_comp and t_mem, share (roofline step time over the
+              measured), MFU, the walker's peak live bytes beside
+              torch.cuda.max_memory_allocated; (c) one dry-run cell,
+              qwen1.5-0.5b train_4k on the (16, 16) pod mesh over a fake
+              group of 256 ranks (``python -m repro_torch.launch.dryrun``
+              in a CPU process of its own): status ok, rank 0's matmul
+              FLOPs x 16 equal to the world-size-1 count; (d) in a group
+              process of its own beside phases 9-20 (``examples``:
+              host-bound like them, and at their default sizes too long
+              for 8h's process alone), examples/torch_quickstart.py and
+              torch_fault_tolerance.py at their default sizes on the
+              card, launches zeroed just before each (map_decide and
+              evict_stats in both, phase1_map in the quickstart,
+              balance_scan in the fault demo), their printouts equal to
+              their CPU runs' (processes of their own, on the same
+              CPU-drawn traces) line for line;
   9. main     the flat paper-scale sweep (paper 4x4 system, rates 2-8, 30
               replicates of 2000 tasks) with ELARE, FELARE and MM on the
               fused map kernels and ELARE on the phase1_map kernel; the
@@ -365,10 +398,6 @@ from functools import partial
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
-TF32_OPS_PER_S = 495e12     # H100 SXM dense TF32 tensor cores
 MAIN_SHAPE = dict(B=150, N=2000, M=4, S=4)
 WIDE_SHAPE = dict(B=8, N=10_000, M=512, S=8)
 RATES = (2.0, 3.0, 4.0, 6.0, 8.0)
@@ -4272,10 +4301,6 @@ def device_ms(fn, iters: int) -> float:
         f"{iters} calls: {seen})")
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 def map_path_inputs(path: str, device) -> dict:
     """Map-kernel inputs at the shape each path gives the kernels: the flat
     sweep's 150 replicates; paper_x8's block fold, 150 x 8 rows of its 4
@@ -4305,21 +4330,27 @@ def map_path_inputs(path: str, device) -> dict:
                           device=device, block=False)
 
 
-def timed_row(name, kern, plain, moved, ops, rate=None, iters=100,
-              plain_iters=20) -> dict:
+def rule_bound(c: dict) -> dict:
+    """The bound of a kernel's cost rule (``kernels/*/ops.py``, the
+    roofline walker's count): the larger of its bytes over the HBM rate
+    and its operations over the rule's peak (``roofline/hw.py``)."""
+    from repro_torch.roofline import hw
+
+    t_bytes = c["bytes"] / hw.HBM_BW * 1e3
+    t_ops = c["flops"] / c["rate"] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": c["bytes"], "operations": c["flops"]}
+
+
+def timed_row(name, kern, plain, rule, iters=100, plain_iters=20) -> dict:
     """Device times of a kernel and its plain version, eager times, and the
-    bound from the bytes moved and operations done (float32 CUDA cores
-    unless ``rate`` says otherwise)."""
-    rate = rate or F32_OPS_PER_S
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / rate * 1e3
+    bound of its cost rule."""
     return {"ms": device_ms(kern, iters), "plain_ms": device_ms(plain,
                                                                 plain_iters),
             "eager_ms": time_ms(kern, 2 * iters),
             "eager_plain_ms": time_ms(plain, plain_iters),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": moved, "operations": ops}
+            **rule_bound(rule)}
 
 
 def time_map_kernels(device, paths) -> dict:
@@ -4337,29 +4368,24 @@ def time_map_kernels(device, paths) -> dict:
         md_args = map_decide_args(x) + (x["suffered"],)
         es_args = evict_stats_args(x)
         table = {
-            # name: (kernel call, plain call, bytes moved, float operations)
+            # name: (kernel call, plain call, cost rule)
             "map_decide": (
                 lambda: map_fused.map_decide(*md_args, **kinds),
                 lambda: map_fused.map_decide_plain(*md_args, **kinds),
-                nbytes(*md_args, *map_fused.map_decide(*md_args, **kinds)),
-                B * N * (4 * M + 2)),
-            # per type and machine a sum and two minima, per task three
-            # comparisons
+                map_fused.map_decide_cost(*md_args)),
             "evict_stats": (
                 lambda: map_fused.evict_stats(*es_args),
                 lambda: map_fused.evict_stats_plain(*es_args),
-                nbytes(*es_args, *map_fused.evict_stats(*es_args)),
-                B * (3 * x["eet"].shape[-2] * M + 3 * N)),
+                map_fused.evict_stats_cost(*es_args)),
         }
         if path in ("flat", "cvb", "mixed_sites", "router"):
             p1_args = phase1_args(x)
             table["phase1_map"] = (
                 lambda: phase1_map.phase1_map(*p1_args),
                 lambda: phase1_map.phase1_map_plain(*p1_args),
-                nbytes(*p1_args, *phase1_map.phase1_map(*p1_args)),
-                B * N * 3 * M)
-        for name, (kern, plain, moved, ops) in table.items():
-            r = timed_row(name, kern, plain, moved, ops)
+                phase1_map.phase1_map_cost(*p1_args))
+        for name, (kern, plain, rule) in table.items():
+            r = timed_row(name, kern, plain, rule)
             by_shape[name][path] = {"rows": B, "N": N, "M": M, **r}
             emit("times", kernel=name, path=path, rows=B, N=N, M=M, **r)
     return by_shape
@@ -4432,15 +4458,9 @@ def time_balance_scan(device) -> dict:
         def plain(x=args):
             return map_fused.balance_scan_plain(*x, max_new=1)
 
-        moved = nbytes(*args, kern())
-        ops = B * N + int(fresh.sum()) * F              # selects + argmins
-        t_bytes = moved / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_OPS_PER_S * 1e3
         r = {"rows": B, "N": N, "F": F,
              "ms": time_ms(kern, 200), "plain_ms": time_ms(plain, 50),
-             "bound_ms": max(t_bytes, t_ops),
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "bytes": moved, "operations": ops,
+             **rule_bound(map_fused.balance_scan_cost(*args)),
              "new_tasks": int(fresh.sum()),
              "device_ms": device_ms(kern, 100),
              "plain_device_ms": device_ms(plain, 20),
@@ -4451,45 +4471,20 @@ def time_balance_scan(device) -> dict:
     return out
 
 
-def ssd_products(B, H, L, P, N, Q, bf16_bc: bool) -> tuple:
-    """The SSD scan's products and the least time the tensor cores take
-    for them at float32 accuracy. Per (b, h) and chunk: C.B^T and W x over
-    the causal triangle (Q (Q + 1) / 2 pairs), C.S and the state update
-    2 Q N P operations each. A float32 operand is split into two TF32
-    parts, so a product of two float32 operands takes three TF32 passes
-    and one whose other operand is exact in TF32 two: x is bf16, so W x
-    and the state update (B dt exp(cl_last - cl) times x) take two. With
-    B and C in bf16, C.B^T is exact on the bf16 tensor cores and C.S takes
-    two passes; with them in float32, both take three. Returns (operations,
-    ms, rate named)."""
-    n = B * H * (L // Q)
-    tri = Q * (Q + 1) // 2
-    cb, wx = 2 * n * tri * N, 2 * n * tri * P
-    cs = st = 2 * n * Q * N * P
-    if bf16_bc:
-        s = cb / BF16_OPS_PER_S + 2 * (wx + cs + st) / TF32_OPS_PER_S
-        rate = ("C.B^T on the bf16 tensor cores (989 TFLOP/s), C.S, W x and "
-                "the state update in 2 TF32 passes (495 TFLOP/s each)")
-    else:
-        s = (3 * (cb + cs) + 2 * (wx + st)) / TF32_OPS_PER_S
-        rate = ("C.B^T and C.S in 3 TF32 passes, W x and the state update "
-                "in 2 (495 TFLOP/s each)")
-    return cb + wx + cs + st, s * 1e3, rate
-
-
 def time_model_kernels(device, errs: dict) -> list:
     """The three model kernels at the serve path's shapes (bf16, B = 8,
     32 heads of 80, 80 SSM heads of 64, N = 64, chunk 128): device time
     per call of the kernel, its plain version and, for the attention
     kernels, one ``scaled_dot_product_attention`` call on the same inputs
-    laid out as it wants them; eager times by CUDA events; the bound from
-    this run's shapes and data (the decode kernel reads only the rows up
-    to kv_len)."""
+    laid out as it wants them; eager times by CUDA events; the bound of
+    each kernel's cost rule on these inputs (the decode kernel's counts
+    only the rows up to kv_len)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention, flash_attention
     from repro_torch.kernels import ssm_scan
+    from repro_torch.roofline import hw
 
     gen = torch.Generator(device=device).manual_seed(21)
     bf16 = torch.bfloat16
@@ -4507,20 +4502,15 @@ def time_model_kernels(device, errs: dict) -> list:
     ssd_f32_bc = ssd
     ssd = ssd[:3] + (ssd[3].bfloat16(), ssd[4].bfloat16())
     Q = 128
-    flash_ops = 4 * B * H * hd * S * (S + 1) // 2
-    decode_ops = 4 * B * H * kv * hd
-    ssd_ops, ssd_ops_ms, ssd_rate = ssd_products(B, 80, S, 64, 64, Q, True)
     table = {
-        # name: (kernel, plain, library, bytes, operations, their least
-        # time in ms, the rates that time assumes)
+        # name: (kernel, plain, library, cost rule, the rates it assumes)
         "flash_attention": (
             lambda: flash_attention.flash_attention(q, k, v, causal=True),
             lambda: flash_attention.flash_attention_plain(q, k, v,
                                                           causal=True),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                    enable_gqa=True),
-            nbytes(q, k, v, q), flash_ops,
-            flash_ops / BF16_OPS_PER_S * 1e3,
+            flash_attention.flash_attention_cost(q, k, v, causal=True),
             "bf16 tensor cores, 989 TFLOP/s"),
         "decode_attention": (
             lambda: decode_attention.decode_attention(q1, ck, cv, kv_len),
@@ -4529,28 +4519,27 @@ def time_model_kernels(device, errs: dict) -> list:
             lambda: F.scaled_dot_product_attention(q1t, ckt, cvt,
                                                    attn_mask=mask,
                                                    enable_gqa=True),
-            nbytes(q1, q1, kv_len) + 2 * B * ck.shape[2] * kv * hd * 2,
-            decode_ops, decode_ops / BF16_OPS_PER_S * 1e3,
+            decode_attention.decode_attention_cost(q1, ck, cv, kv_len),
             "bf16 tensor cores, 989 TFLOP/s"),
         "ssd_scan": (
             lambda: ssm_scan.ssm_scan(*ssd, chunk=Q),
             lambda: ssm_scan.ssd_scan_plain(*ssd, chunk=Q),
             None,
-            nbytes(*ssd, ssd[0]) + B * 80 * 64 * 64 * 4,
-            ssd_ops, ssd_ops_ms, ssd_rate),
+            ssm_scan.ssm_scan_cost(*ssd, chunk=Q),
+            ssm_scan.ssd_products(B, 80, S, 64, 64, Q, x_dtype=bf16,
+                                  b_dtype=bf16, c_dtype=bf16)[2]),
     }
     rows = []
-    for name, (kern, plain, lib, moved, ops, t_ops, rate_name) in \
-            table.items():
-        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    for name, (kern, plain, lib, rule, rate_name) in table.items():
+        bound = rule_bound(rule)
+        moved, ops = bound["bytes"], bound["operations"]
         rows.append({
             "name": name, "route": "cuda",
             "source": KERNEL_SOURCES[name][0],
             "replaces": KERNEL_SOURCES[name][1],
             "max_abs_err": errs[name],
             "ms": device_ms(kern, 20), "plain_ms": device_ms(plain, 5),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             "library_ms": None if lib is None else device_ms(lib, 20),
         })
         row = rows[-1]
@@ -4558,8 +4547,8 @@ def time_model_kernels(device, errs: dict) -> list:
             # both routes count as this kernel's launches; the serve shape
             # takes the tensor cores
             row["counters"] = ["ssd_scan_tc", "ssd_scan"]
-            row["bound_ms_cuda_cores"] = max(t_bytes,
-                                             ops / F32_OPS_PER_S * 1e3)
+            row["bound_ms_cuda_cores"] = rule_bound(
+                dict(rule, rate=hw.PEAK_FLOPS_F32))["bound_ms"]
         emit("times", kernel=name, bytes=moved, operations=ops,
              rate=rate_name, eager_ms=time_ms(kern, 20),
              eager_plain_ms=time_ms(plain, 5),
@@ -4572,16 +4561,14 @@ def time_model_kernels(device, errs: dict) -> list:
                                     "library_ms")})
     # The scan with B and C given in float32 (C.B^T and C.S in three TF32
     # passes), at the same shape, against its own bound.
-    ops, t_ops, rate_name = ssd_products(B, 80, S, 64, 64, Q, False)
-    t_bytes = (nbytes(*ssd_f32_bc, ssd_f32_bc[0]) + B * 80 * 64 * 64 * 4) \
-        / HBM_BYTES_PER_S * 1e3
+    bound = rule_bound(ssm_scan.ssm_scan_cost(*ssd_f32_bc, chunk=Q))
     ms = device_ms(lambda: ssm_scan.ssm_scan(*ssd_f32_bc, chunk=Q), 20)
     emit("times", kernel="ssd_scan", bc_dtype="float32", ms=ms,
          plain_ms=device_ms(lambda: ssm_scan.ssd_scan_plain(*ssd_f32_bc,
                                                            chunk=Q), 5),
-         bound_ms=max(t_bytes, t_ops),
-         bound_by="bytes" if t_bytes >= t_ops else "operations",
-         rate=rate_name, share_of_bound=max(t_bytes, t_ops) / ms)
+         rate=ssm_scan.ssd_products(B, 80, S, 64, 64, Q, bf16,
+                                    torch.float32, torch.float32)[2],
+         share_of_bound=bound["bound_ms"] / ms, **bound)
     # The float32 instantiation of flash attention (the CUDA cores) at the
     # same shape, against the float32 CUDA cores' rate.
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -4590,8 +4577,8 @@ def time_model_kernels(device, errs: dict) -> list:
     emit("times", kernel="flash_attention", dtype="float32", ms=f32_ms,
          eager_ms=time_ms(lambda: flash_attention.flash_attention(
              qf, kf, vf, causal=True), 5),
-         bound_ms=max(nbytes(qf, kf, vf, qf) / HBM_BYTES_PER_S,
-                      flash_ops / F32_OPS_PER_S) * 1e3,
+         bound_ms=rule_bound(flash_attention.flash_attention_cost(
+             qf, kf, vf, causal=True))["bound_ms"],
          rate="float32 CUDA cores, 67 TFLOP/s",
          library_ms=device_ms(lambda: F.scaled_dot_product_attention(
              qt.float(), kt.float(), vt.float(), is_causal=True), 5))
@@ -4608,12 +4595,12 @@ def time_model_kernels(device, errs: dict) -> list:
     for g in D["g"]:
         q1 = card_normal(gen, (B, 1, g * Hkv, D["hd"]), bf16)
         q1t = q1.transpose(1, 2).contiguous()
-        moved = nbytes(q1, q1, kv_len) + 2 * B * Hkv * kv * D["hd"] * 2
         ms = device_ms(lambda: decode_attention.decode_attention(
             q1, ck, cv, kv_len), 20)
         emit("times", kernel="decode_attention", gqa=g, shape=dict(
             B=B, Sk=D["Sk"], kv_len=kv, H=g * Hkv, Hkv=Hkv, hd=D["hd"]),
-            ms=ms, bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+            ms=ms, bound_ms=rule_bound(decode_attention.decode_attention_cost(
+                q1, ck, cv, kv_len))["bound_ms"],
             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                 q1t, ckt, cvt, attn_mask=mask, enable_gqa=True), 20))
     torch.cuda.synchronize()
@@ -4622,14 +4609,21 @@ def time_model_kernels(device, errs: dict) -> list:
 
 def attention_shapes(which: str) -> dict:
     """The attention shapes of the dense configs' serve paths
-    (``which="front"``) or of the other families' (``"families"``), B =
-    8, bf16: {label: (H, Hkv, hd, flash (Sq, Sk, causal) or None, decode
-    (Sk, kv_len) or None)}. Decode is timed against the cache as it is
-    half-way through the 64 generated tokens."""
+    (``which="front"``), of the other families' (``"families"``) or of
+    phase 8g's qwen1.5-0.5b serve (``"qwen"``: 8 x 1024 prompts, 3
+    tokens), B = 8, bf16: {label: (H, Hkv, hd, flash (Sq, Sk, causal) or
+    None, decode (Sk, kv_len) or None)}. Decode is timed against the
+    cache as it is half-way through the generated tokens."""
     from repro_torch.configs import get_config
 
     mid = SERVE_NEW // 2
     shapes = {}
+    if which == "qwen":
+        cfg = get_config(TRAIN_ARCH)
+        shapes[TRAIN_ARCH] = (
+            cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            (SERVE_PROMPT, SERVE_PROMPT, True),
+            (SERVE_PROMPT + SHARDED_NEW, SERVE_PROMPT + SHARDED_NEW // 2))
     for arch, _ in DENSE_SERVE if which == "front" else ():
         cfg = get_config(arch)
         shapes[arch] = (cfg.n_heads, cfg.n_kv_heads, cfg.hd,
@@ -4673,7 +4667,6 @@ def time_attention_shapes(device, which: str) -> dict:
             k, v = (card_normal(gen, (B, Sk, Hkv, hd), bf16)
                     for _ in range(2))
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
             table["flash_attention"] = (
                 partial(flash_attention.flash_attention, q, k, v,
                         causal=causal),
@@ -4681,7 +4674,7 @@ def time_attention_shapes(device, which: str) -> dict:
                         causal=causal),
                 partial(F.scaled_dot_product_attention, qt, kt, vt,
                         is_causal=causal, enable_gqa=True),
-                nbytes(q, k, v, q), 4 * B * H * hd * pairs,
+                flash_attention.flash_attention_cost(q, k, v, causal=causal),
                 dict(B=B, Sq=Sq, Sk=Sk, causal=causal))
         if dec is not None:
             Sk, kv = dec
@@ -4700,20 +4693,20 @@ def time_attention_shapes(device, which: str) -> dict:
                         kv_len),
                 partial(F.scaled_dot_product_attention, q1t, ckt, cvt,
                         attn_mask=mask, enable_gqa=True),
-                nbytes(q1, q1, kv_len) + 2 * B * Hkv * kv * hd * 2,
-                4 * B * H * kv * hd, dict(B=B, Sk=Sk, kv_len=kv))
-        for name, (kern, plain, lib, moved, ops, shape) in table.items():
-            t_bytes = moved / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / BF16_OPS_PER_S * 1e3
+                decode_attention.decode_attention_cost(q1, ck, cv, kv_len),
+                dict(B=B, Sk=Sk, kv_len=kv))
+        for name, (kern, plain, lib, rule, shape) in table.items():
+            bound = rule_bound(rule)
             r = {"H": H, "Hkv": Hkv, "hd": hd, "g": H // Hkv, **shape,
                  "ms": device_ms(kern, 20), "plain_ms": device_ms(plain, 5),
                  "eager_ms": time_ms(kern, 20),
                  "library_ms": device_ms(lib, 20),
-                 "bound_ms": max(t_bytes, t_ops),
-                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                 "bound_ms": bound["bound_ms"],
+                 "bound_by": bound["bound_by"]}
             by_shape[name][label] = r
-            emit("times", kernel=name, shape_of=label, bytes=moved,
-                 operations=ops, share_of_bound=r["bound_ms"] / r["ms"],
+            emit("times", kernel=name, shape_of=label,
+                 bytes=bound["bytes"], operations=bound["operations"],
+                 share_of_bound=r["bound_ms"] / r["ms"],
                  vs_library=r["ms"] / r["library_ms"], **r)
         del table
         torch.cuda.empty_cache()
@@ -4787,7 +4780,434 @@ def add_serving_front_times(rows) -> None:
 
 
 # --------------------------------------------------------------------------
-# The sweep phases (9-20) in six processes at once
+# Phase 8h: the roofline (its own process, alone, after 8g)
+# --------------------------------------------------------------------------
+# Measured steps or calls per median in (b); warm-up calls before them.
+ROOFLINE_REPS, ROOFLINE_WARMUP = 5, 2
+# (c): one cell of the production-mesh dry run, over a fake process group
+DRYRUN_CELL = ("qwen1.5-0.5b", "train_4k", "pod")
+# (d): the two examples at their default sizes
+EXAMPLES = ("torch_quickstart", "torch_fault_tolerance")
+
+
+def hand_count(name: str, args, out=None, **kw) -> tuple:
+    """(bytes, operations, rate) as the timing phases counted them by
+    hand before the cost rules, kept here only to set each rule beside
+    it: every input and the outputs' bytes as launched, and the
+    operations as the smoke wrote them per kernel."""
+    import torch
+
+    from repro_torch.roofline import hw
+
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    f32, bf16 = hw.PEAK_FLOPS_F32, hw.PEAK_FLOPS_BF16
+    if name == "map_decide":
+        (B, N), M = args[5].shape, args[4].shape[-1]
+        return nb(*args, *out), B * N * (4 * M + 2), f32
+    if name == "evict_stats":
+        (B, N), (S, M) = args[3].shape, args[2].shape[-2:]
+        return nb(*args, *out), B * (3 * S * M + 3 * N), f32
+    if name == "phase1_map":
+        B, N, M = args[1].shape
+        return nb(*args, *out), B * N * 3 * M, f32
+    if name == "balance_scan":
+        (B, F), fresh = args[0].shape, args[1]
+        return nb(*args, out), B * fresh.shape[1] + int(fresh.sum()) * F, f32
+    if name == "flash_attention":
+        q, k, v = args
+        B, Sq, H, hd = q.shape
+        pairs = Sq * (Sq + 1) // 2 if kw["causal"] else Sq * k.shape[1]
+        return nb(q, k, v, q), 4 * B * H * hd * pairs, bf16
+    if name == "decode_attention":
+        q, k, v, kv_len = args
+        B, _, H, hd = q.shape
+        kv = int(kv_len[0])
+        return (nb(q, q, kv_len) + 2 * B * k.shape[2] * kv * hd * 2,
+                4 * B * H * kv * hd, bf16)
+    # the SSD scan: ssd_products as the smoke had it (x in bf16)
+    x, dt, A, Bm, Cm = args
+    B, L, H, P = x.shape
+    N, Q = Bm.shape[-1], min(kw["chunk"], L)
+    n, tri = B * H * (L // Q), Q * (Q + 1) // 2
+    cb, wx = 2 * n * tri * N, 2 * n * tri * P
+    cs = st = 2 * n * Q * N * P
+    tf32 = hw.PEAK_FLOPS_TF32
+    secs = (cb / bf16 + 2 * (wx + cs + st) / tf32
+            if Bm.dtype == torch.bfloat16
+            else (3 * (cb + cs) + 2 * (wx + st)) / tf32)
+    ops = cb + wx + cs + st
+    return nb(x, dt, A, Bm, Cm, x) + B * H * N * P * 4, ops, ops / secs
+
+
+def roofline_bounds(device) -> list:
+    """(a) Every row of PERF.md's kernel table: the bound of the kernel's
+    cost rule beside the hand count it replaces, with the ratio. The map
+    kernels at the paths' shapes on the card (the hand count reads the
+    outputs as launched); the attention rows and the SSD scan on ``meta``
+    tensors of the serve shapes, kv_len on the host."""
+    import torch
+
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import map_fused, phase1_map, ssm_scan
+    from repro_torch.roofline import hw
+
+    kinds = dict(nominator="min_energy_feasible", phase2_key="value",
+                 drop_rule="stale_hopeless")
+    table = []          # (kernel, shape, rule, hand (bytes, ops, rate))
+    for path in ("flat", "paper_x8", "tiered_x4", "cvb", "mixed_sites",
+                 "router"):
+        x = map_path_inputs(path, device)
+        md = map_decide_args(x) + (x["suffered"],)
+        table.append(("map_decide", path, map_fused.map_decide_cost(*md),
+                      hand_count("map_decide", md,
+                                 map_fused.map_decide(*md, **kinds))))
+        es = evict_stats_args(x)
+        table.append(("evict_stats", path, map_fused.evict_stats_cost(*es),
+                      hand_count("evict_stats", es,
+                                 map_fused.evict_stats(*es))))
+        if path in ("flat", "cvb", "mixed_sites", "router"):
+            p1 = phase1_args(x)
+            table.append(("phase1_map", path,
+                          phase1_map.phase1_map_cost(*p1),
+                          hand_count("phase1_map", p1,
+                                     phase1_map.phase1_map(*p1))))
+    for path, shape in (("paper_x8", BALANCE_SHAPES[0]),
+                        ("tiered_x4", dict(B=len(TIER_RATES) * TIER_REPS,
+                                           N=TIER_TIMED_TASKS, F=4))):
+        load0, _, target, home = balance_inputs(**shape, density=0.0,
+                                                loads="mixed", seed=3,
+                                                device=device)
+        fresh = torch.zeros_like(target)
+        fresh[:, 0] = True                      # one admission per row
+        args = (load0 % 1_000_000, fresh, target, home)
+        table.append(("balance_scan", path,
+                      map_fused.balance_scan_cost(*args),
+                      hand_count("balance_scan", args,
+                                 map_fused.balance_scan(*args))))
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+
+    zamba = {SERVE_ARCH: (32, 32, 80, (SERVE_PROMPT, SERVE_PROMPT, True),
+                          (SERVE_MAX_SEQ, SERVE_PROMPT + SERVE_NEW // 2))}
+    shapes = {**zamba, **attention_shapes("front"),
+              **attention_shapes("families"), **attention_shapes("qwen")}
+    B = SERVE_BATCH
+    for label, (H, Hkv, hd, flash, dec) in shapes.items():
+        if flash is not None:
+            Sq, Sk, causal = flash
+            qkv = (meta(B, Sq, H, hd), meta(B, Sk, Hkv, hd),
+                   meta(B, Sk, Hkv, hd))
+            table.append(("flash_attention", label,
+                          flash_attention.flash_attention_cost(
+                              *qkv, causal=causal),
+                          hand_count("flash_attention", qkv,
+                                     causal=causal)))
+        if dec is not None:
+            Sk, kv = dec
+            args = (meta(B, 1, H, hd), meta(B, Sk, Hkv, hd),
+                    meta(B, Sk, Hkv, hd),
+                    torch.full((B,), kv, dtype=torch.int32))
+            table.append(("decode_attention", label,
+                          decode_attention.decode_attention_cost(*args),
+                          hand_count("decode_attention", args)))
+    L, H, P, N = SERVE_PROMPT, 80, 64, 64
+    for bc in (torch.bfloat16, torch.float32):
+        args = (meta(B, L, H, P), torch.empty((B, L, H), device="meta"),
+                torch.empty((H,), device="meta"),
+                torch.empty((B, L, N), dtype=bc, device="meta"),
+                torch.empty((B, L, N), dtype=bc, device="meta"))
+        table.append(("ssd_scan", f"serve, B and C {str(bc)[6:]}",
+                      ssm_scan.ssm_scan_cost(*args, chunk=128),
+                      hand_count("ssm_scan", args, chunk=128)))
+    rows = []
+    for name, shape, rule, (hb, hops, hrate) in table:
+        hand = rule_bound({"bytes": hb, "flops": hops, "rate": hrate})
+        got = rule_bound(rule)
+        rows.append({"kernel": name, "shape": shape,
+                     "bound_ms": got["bound_ms"], "bound_by": got["bound_by"],
+                     "hand_bound_ms": hand["bound_ms"],
+                     "ratio": got["bound_ms"] / hand["bound_ms"],
+                     "bytes": got["bytes"], "hand_bytes": hb,
+                     "operations": got["operations"], "hand_operations": hops})
+    emit("roofline_bounds", rows=rows,
+         max_ratio_gap=max(abs(r["ratio"] - 1) for r in rows),
+         rates={"bf16": hw.PEAK_FLOPS_BF16, "tf32": hw.PEAK_FLOPS_TF32,
+                "f32": hw.PEAK_FLOPS_F32, "hbm": hw.HBM_BW},
+         card=nvidia_smi())
+    return rows
+
+
+def _median_ms(fn, reps=ROOFLINE_REPS, warmup=ROOFLINE_WARMUP) -> tuple:
+    """(median, every) ms of ``fn()`` calls by the host clock around a
+    synchronize, after ``warmup`` calls."""
+    import statistics
+
+    import torch
+
+    out = []
+    for i in range(warmup + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out), out
+
+
+def _share_row(name, c, measured_ms, model_flops, peak, before) -> dict:
+    """The walker's counts of one step beside its measured time: the
+    roofline terms, share, MFU at the roofline and measured, and the
+    walker's peak live bytes beside the allocator's."""
+    from repro_torch.roofline import analysis as ra
+    from repro_torch.roofline import hw
+
+    roof = ra.from_cost(name, "", "1 card", 1, c, model_flops)
+    return {"walker_flops": c["flops"], "walker_bytes": c["bytes"],
+            "matmul_flops": c["matmul_flops"],
+            "by_kernel": {k: v["calls"] for k, v in c["by_kernel"].items()},
+            "t_comp_ms": roof.t_comp * 1e3, "t_mem_ms": roof.t_mem * 1e3,
+            "dominant": roof.dominant, "measured_ms": measured_ms,
+            "share": ra.share(roof, measured_ms * 1e-3),
+            "mfu_roofline": roof.mfu,
+            "mfu_measured": model_flops / (measured_ms * 1e-3)
+            / hw.PEAK_FLOPS_BF16,
+            "model_flops": model_flops,
+            "walker_peak_bytes": before + c["peak_bytes"],
+            "max_memory_allocated": peak, "resident_before": before}
+
+
+def step_roofline(device) -> dict:
+    """(b) The roofline share of two whole steps on the card: phase 8f's
+    training cell (qwen1.5-0.5b, bf16, 8 x 512 tokens in 2 microbatches,
+    remat) and phase 7's zamba2-2.7b serve cell (8 x 1024-token prompts,
+    then decode). Each is walked once on the card (the kernels count
+    their rules), the train step also on ``meta`` (the same counts, or
+    the walker lost the backward), then timed: median of 5 steps or calls
+    after 2, host clock around a synchronize."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.datapipe.synthetic import SyntheticLM
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamW
+    from repro_torch.roofline import cost as rc
+    from repro_torch.train import TRAIN_IMPLS, make_serve_steps, \
+        make_train_step
+
+    def resident():
+        return torch.cuda.memory_allocated(device)
+
+    out = {}
+    # the training cell ------------------------------------------------------
+    cfg = get_config(TRAIN_ARCH).scaled(**TRAIN_IMPLS)
+    opt = AdamW(lr=TRAIN_LR)
+    data = SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0,
+                       accum=TRAIN_ACCUM)
+    params = transformer.init(cfg, torch.Generator(device=device)
+                              .manual_seed(0), device=device)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, donate=False, device=device)
+    batch = data.batch_at(0)
+    meta_batch = {k: torch.empty(v.shape, dtype=torch.as_tensor(v).dtype,
+                                 device="meta") for k, v in batch.items()}
+    shapes = transformer.param_shapes(cfg)
+    on_meta = rc.cost(make_train_step(cfg, opt, donate=False,
+                                      device="meta"),
+                      shapes, opt.init(shapes), meta_batch)
+    torch.cuda.synchronize()
+    before = resident()
+    c = rc.measure(step, params, state, batch)[1]    # its result freed
+    # the same ops but the host-to-device copies of a few scalars: a
+    # walker that lost the backward's thread would read a third
+    keys = ("flops", "bytes", "matmul_flops")
+    require(all(abs(c[k] - on_meta[k]) <= 1e-6 * on_meta[k] for k in keys),
+            f"roofline: the train step's walk on the card "
+            f"{[c[k] for k in keys]} differs from meta "
+            f"{[on_meta[k] for k in keys]}")
+    require(not c["by_kernel"], "roofline: training reached a kernel")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    i = iter(range(1, 1 + ROOFLINE_WARMUP + ROOFLINE_REPS))
+    ms, every = _median_ms(lambda: step(params, state, data.batch_at(
+        next(i))))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out["train"] = {"arch": TRAIN_ARCH, "tokens": tokens, "ms_each": every,
+                    **_share_row("train", c, ms, 6.0 * cfg.active_params()
+                                 * tokens, torch.cuda.max_memory_allocated(
+                                     device), before)}
+    del params, state, step
+    torch.cuda.empty_cache()
+    # the zamba2-2.7b serve cell ----------------------------------------------
+    cfg = get_config(SERVE_ARCH)
+    params = transformer.init(cfg, torch.Generator(device=device)
+                              .manual_seed(0), device=device)
+    pre, dec = make_serve_steps(cfg, device=device)
+    prompt = serve_prompt()
+    logits, cache = pre(params, prompt, max_seq=SERVE_MAX_SEQ)   # warm-up
+    dec(params, cache, logits.argmax(-1))
+    del logits, cache
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = resident()
+    (logits, cache), cp = rc.measure(pre, params, prompt,
+                                     max_seq=SERVE_MAX_SEQ)
+    tok = logits.argmax(-1)
+    before_dec = resident()
+    cd = rc.measure(dec, params, cache, tok)[1]
+    del logits, cache
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    ms, every = _median_ms(lambda: pre(params, prompt,
+                                       max_seq=SERVE_MAX_SEQ))
+    n_act = cfg.active_params()
+    out["prefill"] = {"arch": SERVE_ARCH, "ms_each": every,
+                      **_share_row("prefill", cp, ms, 2.0 * n_act
+                                   * SERVE_BATCH * SERVE_PROMPT,
+                                   torch.cuda.max_memory_allocated(device),
+                                   before)}
+    logits, cache = pre(params, prompt, max_seq=SERVE_MAX_SEQ)
+    tok = logits.argmax(-1)
+    torch.cuda.reset_peak_memory_stats(device)
+    ms, every = _median_ms(lambda: dec(params, cache, tok))
+    out["decode"] = {"arch": SERVE_ARCH, "ms_each": every,
+                     "cache_len_walked": SERVE_PROMPT,
+                     **_share_row("decode", cd, ms, 2.0 * n_act
+                                  * SERVE_BATCH,
+                                  torch.cuda.max_memory_allocated(device),
+                                  before_dec)}
+    require(cp["by_kernel"].get("flash_attention", {}).get("calls") and
+            cp["by_kernel"].get("ssm_scan", {}).get("calls") and
+            cd["by_kernel"].get("decode_attention", {}).get("calls"),
+            f"roofline: the serve walk missed a kernel: "
+            f"{cp['by_kernel']}, {cd['by_kernel']}")
+    del params, cache
+    torch.cuda.empty_cache()
+    emit("step_roofline", card=nvidia_smi(), **out)
+    return out
+
+
+def cpu_process(args) -> subprocess.Popen:
+    """A process of the CPU's own work for phase 8h (one thread)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    return subprocess.Popen([sys.executable, *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=str(ROOT))
+
+
+def finish(proc, what: str, timeout: float = 600) -> str:
+    out, err = proc.communicate(timeout=timeout)
+    require(proc.returncode == 0, f"{what} failed (exit code "
+                                  f"{proc.returncode}): {out[-2000:]} "
+                                  f"{(err or '')[-2000:]}")
+    return out
+
+
+def run_roofline(device) -> dict:
+    """Phase 8h: (a) the kernel table's bounds from the rules, and flash
+    and decode attention timed at phase 8g's qwen1.5-0.5b serve shape;
+    (b) the step roofline shares; (c) one dry-run cell on the pod mesh
+    over a fake group, in a CPU process of its own started first. Returns
+    the qwen1.5-0.5b attention times."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_roofline_"))
+    arch, shape, mesh = DRYRUN_CELL
+    dry = cpu_process(["-m", "repro_torch.launch.dryrun", "--arch", arch,
+                       "--shape", shape, "--mesh", mesh, "--out",
+                       str(tmp / "dryrun")])
+    try:
+        qwen = time_attention_shapes(device, "qwen")
+        bounds = roofline_bounds(device)
+        step_roofline(device)
+        t_card = time.perf_counter() - t0
+        finish(dry, "roofline: the dry-run cell")
+        rec = json.loads((tmp / "dryrun" / "cells.jsonl").read_text()
+                         .splitlines()[-1])
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(rec["status"] == "ok", f"roofline: dry-run cell {rec}")
+    world1 = rec["flops_global_over_chips"]["matmul_flops"] * rec["chips"]
+    require(abs(rec["cost"]["matmul_flops"] * 16 - world1) <= 1e-9 * world1,
+            f"roofline: rank 0's matmul FLOPs x 16 "
+            f"{rec['cost']['matmul_flops'] * 16} against the world-size-1 "
+            f"count {world1}")
+    emit("roofline", dryrun_cell=rec, bound_rows=len(bounds),
+         card_seconds=t_card, seconds=time.perf_counter() - t0,
+         card=nvidia_smi())
+    return qwen
+
+
+def run_examples(device) -> dict:
+    """Phase 8h (d): examples/torch_quickstart.py and
+    torch_fault_tolerance.py at their default sizes on the card, each with
+    the launch counts zeroed just before, against their CPU runs
+    (processes of their own, started first): the printouts equal line for
+    line, every scheduling kernel of each path launched. Returns the
+    launch counts of both."""
+    import contextlib
+    import importlib.util
+    import io
+
+    t0 = time.perf_counter()
+    cpu = {name: cpu_process([str(ROOT / "examples" / f"{name}.py"),
+                              "--device", "cpu"]) for name in EXAMPLES}
+    lines, counts, secs = {}, {}, {}
+    try:
+        for name in EXAMPLES:
+            spec = importlib.util.spec_from_file_location(
+                f"example_{name}", ROOT / "examples" / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            buf = io.StringIO()
+            reset_counts()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main(["--device", str(device)])
+            secs[name] = time.perf_counter() - t1
+            counts[name] = read_counts()
+            require(rc == 0, f"examples: {name} on the card exited {rc}")
+            lines[name] = buf.getvalue().splitlines()
+        t_card = time.perf_counter() - t0
+        for name in EXAMPLES:
+            want = finish(cpu[name], f"examples: {name} on the CPU")
+            require(want.splitlines() == lines[name],
+                    f"examples: {name} prints differently on the card: "
+                    f"{lines[name]} against the CPU's {want.splitlines()}")
+    finally:
+        for p in cpu.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    quick, fault = counts["torch_quickstart"], counts["torch_fault_tolerance"]
+    require(min(quick["map_decide"], quick["evict_stats"],
+                quick["phase1_map"], fault["map_decide"],
+                fault["evict_stats"], fault["balance_scan"]) > 0,
+            f"examples: a scheduling kernel of a path never launched: "
+            f"{counts}")
+    emit("examples", equal_to_cpu=True, **{
+        name: {"card_seconds": secs[name], "launches": counts[name],
+               "lines": lines[name]} for name in EXAMPLES},
+         card_seconds=t_card, seconds=time.perf_counter() - t0,
+         card=nvidia_smi())
+    total = {}
+    for c in counts.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+# --------------------------------------------------------------------------
+# The sweep phases (9-20) in six processes at once (and 8h (d), the
+# examples, in a seventh)
 # --------------------------------------------------------------------------
 # The sweeps are bound by the host's launches (85-93 % of the card idle),
 # so six processes can share the one card. Each group draws its traces
@@ -4800,8 +5220,9 @@ def add_serving_front_times(rows) -> None:
 # x their time alone, the card time-sliced between the processes
 # (granite-moe-3b's decode step 843.9 ms against 78.6 ms alone on an
 # NVIDIA H100 80GB HBM3 at 700 W).
-SWEEP_GROUPS = ("fed", "fleets", "scenarios", "observe", "flat", "network")
-GROUPS = ("families", "sharded") + SWEEP_GROUPS
+SWEEP_GROUPS = ("fed", "fleets", "scenarios", "observe", "flat", "network",
+                "examples")
+GROUPS = ("families", "sharded", "roofline") + SWEEP_GROUPS
 
 
 def metrics_digest(result, heuristic: str) -> str:
@@ -4902,7 +5323,22 @@ def group_sharded(device, args) -> dict:
     own (the training part's deterministic cuBLAS wants its workspace
     setting before the process's first cuBLAS call)."""
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    return {"paths": {"sharded": run_sharded(device)}}
+    counts = run_sharded(device)
+    return {"paths": {"sharded": counts},
+            "by_shape": {TRAIN_ARCH: {k: counts[k] for k in (
+                "flash_attention", "decode_attention")}}}
+
+
+def group_roofline(device, args) -> dict:
+    """Phase 8h (a)-(c): the roofline, alone on the card after 8g (the
+    dry-run cell in a CPU process of its own)."""
+    return {"paths": {}, "attention_times": run_roofline(device)}
+
+
+def group_examples(device, args) -> dict:
+    """Phase 8h (d): the two examples on the card beside the sweeps
+    (host-bound like them), against their CPU runs."""
+    return {"paths": {"examples": run_examples(device)}}
 
 
 def group_fleets(device, args) -> dict:
@@ -5129,13 +5565,15 @@ def main(argv=None) -> int:
     paths = {"flat": {}, "federated": {}, "serve": serve, "observed": {},
              "faults": {}, "network": {}, "scenarios": {},
              "serve_dense": {}, "router": router, "serve_families": {},
-             "serve_edge": {}, "train": {}, "sharded": {}}
+             "serve_edge": {}, "train": {}, "sharded": {},
+             "examples": {}}
     for counts in dense.values():
         for k, v in counts.items():
             paths["serve_dense"][k] = paths["serve_dense"].get(k, 0) + v
     shape_counts = {SERVE_ARCH: serve, "router": router, **dense}
     results = run_groups(args, ("families",))
     results.update(run_groups(args, ("sharded",)))
+    results.update(run_groups(args, ("roofline",)))
     results.update(run_groups(args, SWEEP_GROUPS))
     # the flat FELARE sweep of phase 9 and the unobserved one of phase 13
     # (whose Metrics phases 13 and 15 hold against the observed and plain
@@ -5148,6 +5586,9 @@ def main(argv=None) -> int:
             for k, v in counts.items():
                 paths[path][k] = paths[path].get(k, 0) + v
         shape_counts.update(result.get("by_shape", {}))
+    by_name = {r["name"]: r for r in rows}
+    for name, shapes in results["roofline"]["attention_times"].items():
+        by_name[name]["by_shape"].update(shapes)
     for row in rows:
         counters = row.get("counters", [row["name"]])
         row["launches_by_path"] = {path: sum(p.get(c, 0) for c in counters)

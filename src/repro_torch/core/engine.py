@@ -524,12 +524,13 @@ def _site_rows(fold: _Fold, trace: Trace, types32: torch.Tensor
 
 def _site_eet(fold: _Fold, eet: torch.Tensor) -> torch.Tensor:
     """The site views' (B * F, S, w) EET tables folded from per-replicate
-    (B, S, M) ones, as :func:`_make_fold` folds the shared table."""
+    (B, S, M) ones, as :func:`_make_fold` folds the shared table;
+    contiguous, as the kernels take them (at B = 1 the fold is a view)."""
     B, S, M = eet.shape
     F = fold.n_sites
     if fold.block:
         return eet.reshape(B, S, F, M // F).transpose(1, 2).reshape(
-            B * F, S, M // F)
+            B * F, S, M // F).contiguous()
     return torch.where(fold.members[:, None, :], eet[:, None],
                        BIG).reshape(B * F, S, M)
 

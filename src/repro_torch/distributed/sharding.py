@@ -32,6 +32,7 @@ padded by :func:`pad_batch`.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -312,8 +313,22 @@ def cache_sharding(cfg, mesh, cache_shapes):
 # --------------------------------------------------------------------------
 # DTensors in a layout
 # --------------------------------------------------------------------------
+#: Meshes whose shards are ``meta`` tensors (:func:`on_meta`).
+_META_MESHES: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def on_meta(mesh):
+    """Mark ``mesh`` (a CPU mesh, as over a fake process group) as one
+    whose shards live on the ``meta`` device: shapes and dtypes, nothing
+    allocated (the dry run's meshes). Returns ``mesh``."""
+    _META_MESHES.add(mesh)
+    return mesh
+
+
 def mesh_device(mesh) -> torch.device:
     """The device of this rank's shards on ``mesh``."""
+    if mesh in _META_MESHES:
+        return torch.device("meta")
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)

@@ -114,6 +114,15 @@ class SweepResult:
         return _mean_ci(self.completion_rate_traces)[0]
 
     @property
+    def completion_rate_pooled(self) -> np.ndarray:
+        """(H, R) completion rate pooled over replicates and types: total
+        completions over total arrivals (replicates weighted by their
+        arrivals); :attr:`completion_rate` averages per-trace rates."""
+        c = self.metrics.completed_by_type.sum(-1).sum(-1).astype(np.float64)
+        a = self.metrics.arrived_by_type.sum(-1).sum(-1).astype(np.float64)
+        return c / np.maximum(a, 1.0)
+
+    @property
     def energy(self) -> np.ndarray:
         """(H, R) mean total energy."""
         return _mean_ci(self.energy_traces)[0]

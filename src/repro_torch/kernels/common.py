@@ -70,3 +70,24 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
 LL = ctypes.c_longlong
+
+
+def tensor_bytes(*tensors) -> int:
+    """Bytes of the tensors' elements (``None`` entries skipped)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def rule(flops: int, nbytes: int, rate: float, matmul_flops: int = 0) -> dict:
+    """A kernel's cost as the roofline walker counts it: the work the
+    function defines, whatever implements it. ``nbytes``: each input read
+    once, each output written once; ``rate``: the peak FLOP/s that
+    applies to its operations."""
+    return {"flops": int(flops), "bytes": int(nbytes), "rate": float(rate),
+            "matmul_flops": int(matmul_flops)}
+
+
+def empty_meta(shape, dtype: torch.dtype) -> torch.Tensor:
+    """An empty ``meta`` tensor: what a wrapper returns for ``meta`` inputs
+    while the roofline walker is active."""
+    return torch.empty(shape, dtype=dtype, device="meta")

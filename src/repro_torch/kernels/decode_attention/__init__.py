@@ -3,7 +3,9 @@ plain version in :mod:`repro_torch.kernels.decode_attention.ops`."""
 from repro_torch.kernels.decode_attention.ops import (
     LAUNCHES,
     decode_attention,
+    decode_attention_cost,
     decode_attention_plain,
 )
 
-__all__ = ["LAUNCHES", "decode_attention", "decode_attention_plain"]
+__all__ = ["LAUNCHES", "decode_attention", "decode_attention_cost",
+           "decode_attention_plain"]

@@ -11,7 +11,9 @@ key at or past ``kv_len``, ``max(l, 1e-30)``, float32 throughout.
 The wrapper runs :func:`decode_attention_plain` when every input lies on
 the CPU, and otherwise launches the CUDA kernel
 (``csrc/decode_attention.cu``) or raises. ``LAUNCHES`` counts kernel
-launches, and nothing else.
+launches, and nothing else. The wrapper is the roofline walker's kernel
+scope with :func:`decode_attention_cost`; under the walker, ``meta``
+inputs give an empty ``meta`` output.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.kernels.common import (
     LL,
     PTR,
     cuda_device,
+    empty_meta,
     on_cpu,
     raise_on,
     refuse_autograd,
@@ -31,10 +34,12 @@ from repro_torch.kernels.common import (
 )
 from repro_torch.kernels.flash_attention.ops import (
     check_attention_args,
+    flash_attention_cost,
     flash_attention_plain,
     kv_len_ptr,
     rows,
 )
+from repro_torch.roofline import walk
 
 #: Kernel launches since the last reset (the CPU path never counts).
 LAUNCHES = {"decode_attention": 0}
@@ -57,6 +62,20 @@ def decode_attention_plain(q, k, v, kv_len):
     return flash_attention_plain(q, k, v, causal=False, kv_len=kv_len)
 
 
+def decode_attention_cost(q, k, v, kv_len) -> dict:
+    """:func:`decode_attention`'s cost: one query row against the first
+    ``kv_len`` rows (:func:`flash_attention.ops.flash_attention_cost`,
+    not causal)."""
+    return flash_attention_cost(q, k, v, causal=False, kv_len=kv_len)
+
+
+def _decode_attention_meta(q, k, v, kv_len):
+    check_attention_args(q, k, v, kv_len, 0)
+    return empty_meta(q.shape, q.dtype)
+
+
+@walk.kernel("decode_attention", decode_attention_cost,
+             _decode_attention_meta)
 def decode_attention(q, k, v, kv_len):
     """One query row per (batch, head) against the first ``kv_len`` rows
     of the cache. Arguments and result as :func:`decode_attention_plain`;

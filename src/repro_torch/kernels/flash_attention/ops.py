@@ -18,7 +18,10 @@ float32.
 The wrapper runs :func:`flash_attention_plain` when every input lies on
 the CPU, and otherwise launches the CUDA kernel (``csrc/flash_attention.cu``)
 or raises. ``LAUNCHES`` counts kernel launches, and nothing else. No
-padding: the kernel masks the ragged edge of Sq and Sk itself.
+padding: the kernel masks the ragged edge of Sq and Sk itself. The
+wrapper is the roofline walker's kernel scope with
+:func:`flash_attention_cost`; under the walker, ``meta`` inputs give an
+empty ``meta`` output.
 """
 from __future__ import annotations
 
@@ -31,11 +34,15 @@ from repro_torch.kernels.common import (
     LL,
     PTR,
     cuda_device,
+    empty_meta,
     on_cpu,
     raise_on,
     refuse_autograd,
+    rule,
     stream_ptr,
+    tensor_bytes,
 )
+from repro_torch.roofline import hw, walk
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
@@ -119,6 +126,50 @@ def kv_len_ptr(kv_len, dev) -> tuple:
     return kl, kl.data_ptr()
 
 
+def _valid_keys(Sq: int, L: int, causal: bool, q_offset: int) -> tuple:
+    """(query-key pairs, keys read) that one batch row with ``L`` valid
+    keys leaves: query i sees keys j < L, and j <= q_offset + i if
+    causal, so min(q_offset + 1 + i, L) of them."""
+    if not causal:
+        return Sq * L, L
+    a = q_offset + 1
+    t = max(0, min(Sq, L - a))          # the queries that see fewer than L
+    return t * a + t * (t - 1) // 2 + (Sq - t) * L, min(L, q_offset + Sq)
+
+
+def flash_attention_cost(q, k, v, *, causal: bool = True, kv_len=None,
+                         q_offset: int = 0) -> dict:
+    """The work attention defines, counting only the (query, key) pairs
+    that the causal mask, ``kv_len`` and ``q_offset`` leave valid: per
+    pair and head 2 hd FLOPs for q.k and 2 hd for p v, all matmul FLOPs;
+    q and the output once, and per batch row only the key and value rows
+    some query sees. ``kv_len`` is read from the data (one host read)
+    where it can be, and taken as Sk on ``meta`` inputs, where the data is
+    not known. bf16 at the tensor cores' rate, float32 at the CUDA
+    cores'."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    lens = ([Sk] * B if kv_len is None or walk.is_meta(kv_len)
+            else [min(int(n), Sk) for n in kv_len.tolist()])
+    pairs = keys = 0
+    for L in lens:
+        p, n = _valid_keys(Sq, max(L, 0), causal, q_offset)
+        pairs, keys = pairs + p, keys + n
+    flops = 4 * pairs * H * hd
+    kv_bytes = 2 * keys * Hkv * hd * k.element_size()
+    rate = (hw.PEAK_FLOPS_BF16 if q.dtype == torch.bfloat16
+            else hw.PEAK_FLOPS_F32)
+    return rule(flops, 2 * tensor_bytes(q) + kv_bytes
+                + tensor_bytes(kv_len), rate, flops)
+
+
+def _flash_attention_meta(q, k, v, *, causal=True, kv_len=None,
+                          q_offset=0):
+    check_attention_args(q, k, v, kv_len, q_offset)
+    return empty_meta(q.shape, q.dtype)
+
+
+@walk.kernel("flash_attention", flash_attention_cost, _flash_attention_meta)
 def flash_attention(q, k, v, *, causal: bool = True, kv_len=None,
                     q_offset: int = 0):
     """Attention of every query row against the keys, blockwise.

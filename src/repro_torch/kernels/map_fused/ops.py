@@ -20,7 +20,10 @@ per simulation).
 Each wrapper runs its plain PyTorch version when every input lies on the
 CPU, and otherwise launches its CUDA kernel (``csrc/map_fused.cu``,
 ``csrc/balance_scan.cu``) or raises. ``LAUNCHES`` counts kernel
-launches, and nothing else.
+launches, and nothing else. Each is the roofline walker's kernel scope
+(``roofline.walk.kernel``) with its cost rule (:func:`map_decide_cost`,
+:func:`evict_stats_cost`, :func:`balance_scan_cost`); under the walker,
+``meta`` inputs give empty ``meta`` outputs.
 
 No padding: the kernels handle any N, M and F. A machine whose key is
 BIG has no nominee, and its task is then 0, as in the TPU kernel.
@@ -37,10 +40,14 @@ from repro_torch.kernels.common import (
     PTR,
     check,
     cuda_device,
+    empty_meta,
     on_cpu,
     raise_on,
+    rule,
     stream_ptr,
+    tensor_bytes,
 )
+from repro_torch.roofline import hw, walk
 
 #: Nominator / Phase-II key / drop-rule kinds the kernel implements, in
 #: the order of the kernel's integer codes.
@@ -227,8 +234,70 @@ def balance_scan_plain(load0, unassigned, target, home, *, max_new=None):
 
 
 # --------------------------------------------------------------------------
+# Cost rules: the work each function defines (float32 CUDA cores)
+# --------------------------------------------------------------------------
+def map_decide_cost(now, start, p_dyn, qfree, eet, deadline, pending,
+                    task_type, suffered_task, **_kinds) -> dict:
+    """Every input read once, the five outputs written once; per task and
+    machine four operations (the EET gather, Eq. 1's sum, Eq. 2's
+    product, the feasibility test) and per task two (the drop rule and
+    the Phase-II key)."""
+    B, N = deadline.shape
+    M = eet.shape[-1]
+    outs = B * N + 2 * B * M * (4 + 8)          # drop; (key f32, task i64)
+    return rule(B * N * (4 * M + 2),
+                tensor_bytes(now, start, p_dyn, qfree, eet, deadline,
+                             pending, task_type, suffered_task) + outs,
+                hw.PEAK_FLOPS_F32)
+
+
+def evict_stats_cost(start, qfree, eet, deadline, pending,
+                     task_type) -> dict:
+    """Every input read once, ``task_feas_now`` (bool) and ``min_exec``
+    (float32) written once; per type and machine a sum and two minima,
+    per task three comparisons."""
+    B, N = deadline.shape
+    S, M = eet.shape[-2:]
+    return rule(B * (3 * S * M + 3 * N),
+                tensor_bytes(start, qfree, eet, deadline, pending,
+                             task_type) + B * N * (1 + 4),
+                hw.PEAK_FLOPS_F32)
+
+
+def balance_scan_cost(load0, unassigned, target, home) -> dict:
+    """Every input read once, the int64 sites written once; one select
+    per task and one argmin over the F sites per new task. The new tasks
+    are the data's count (one host read) where the data can be read, and
+    every task on ``meta`` inputs (the walk's longest case)."""
+    B, F = load0.shape
+    N = unassigned.shape[1]
+    new = B * N if walk.is_meta(unassigned) else int(unassigned.sum())
+    return rule(B * N + new * F,
+                tensor_bytes(load0, unassigned, target, home) + B * N * 8,
+                hw.PEAK_FLOPS_F32)
+
+
+def _map_decide_meta(now, start, p_dyn, qfree, eet, deadline, *_a, **_k):
+    B, N = deadline.shape
+    M = eet.shape[-1]
+    key, task = ((B, M), torch.float32), ((B, M), torch.int64)
+    return tuple(empty_meta(*spec) for spec in (
+        ((B, N), torch.bool), key, task, key, task))
+
+
+def _evict_stats_meta(start, qfree, eet, deadline, *_a):
+    B, N = deadline.shape
+    return empty_meta((B, N), torch.bool), empty_meta((B, N), torch.float32)
+
+
+def _balance_scan_meta(load0, unassigned, *_a):
+    return empty_meta(unassigned.shape, torch.int64)
+
+
+# --------------------------------------------------------------------------
 # Wrappers
 # --------------------------------------------------------------------------
+@walk.kernel("map_decide", map_decide_cost, _map_decide_meta)
 def map_decide(now, start, p_dyn, qfree, eet, deadline, pending, task_type,
                suffered_task, *, nominator: str, phase2_key: str,
                drop_rule: str):
@@ -277,6 +346,7 @@ def map_decide(now, start, p_dyn, qfree, eet, deadline, pending, task_type,
     return outs
 
 
+@walk.kernel("evict_stats", evict_stats_cost, _evict_stats_meta)
 def evict_stats(start, qfree, eet, deadline, pending, task_type):
     """Per-task eviction-planner stats over the pre-eviction grid.
 
@@ -308,6 +378,7 @@ def evict_stats(start, qfree, eet, deadline, pending, task_type):
     return feas, min_exec
 
 
+@walk.kernel("balance_scan", balance_scan_cost, _balance_scan_meta)
 def balance_scan(load0, unassigned, target, home):
     """The dispatcher's least-loaded walk as one kernel call.
 

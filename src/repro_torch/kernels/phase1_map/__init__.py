@@ -3,7 +3,8 @@
 from repro_torch.kernels.phase1_map.ops import (
     LAUNCHES,
     phase1_map,
+    phase1_map_cost,
     phase1_map_plain,
 )
 
-__all__ = ["LAUNCHES", "phase1_map", "phase1_map_plain"]
+__all__ = ["LAUNCHES", "phase1_map", "phase1_map_cost", "phase1_map_plain"]

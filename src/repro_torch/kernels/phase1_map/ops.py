@@ -13,7 +13,9 @@ f32, ``pending`` (B, N) bool and ``qfree`` (B, M) bool.
 
 The wrapper runs the plain version when every input lies on the CPU and
 otherwise launches ``csrc/phase1_map.cu`` or raises. ``LAUNCHES`` counts
-kernel launches.
+kernel launches. It is the roofline walker's kernel scope with
+:func:`phase1_map_cost`; under the walker, ``meta`` inputs give empty
+``meta`` outputs.
 """
 from __future__ import annotations
 
@@ -26,10 +28,14 @@ from repro_torch.kernels.common import (
     PTR,
     check,
     cuda_device,
+    empty_meta,
     on_cpu,
     raise_on,
+    rule,
     stream_ptr,
+    tensor_bytes,
 )
+from repro_torch.roofline import hw, walk
 
 #: Kernel launches since the last reset (the CPU path never counts).
 LAUNCHES = {"phase1_map": 0}
@@ -59,6 +65,24 @@ def phase1_map_plain(avail, eet_rows, deadline, p_dyn, pending, qfree):
     return best_m, best_ec
 
 
+def phase1_map_cost(avail, eet_rows, deadline, p_dyn, pending,
+                    qfree) -> dict:
+    """Every input read once, ``best_m`` (int64) and ``best_ec`` (float32)
+    written once; per task and machine three float32 operations (Eq. 1's
+    sum, the energy product, the minimum)."""
+    B, N, M = eet_rows.shape
+    return rule(B * N * 3 * M,
+                tensor_bytes(avail, eet_rows, deadline, p_dyn, pending,
+                             qfree) + B * N * (8 + 4),
+                hw.PEAK_FLOPS_F32)
+
+
+def _phase1_map_meta(avail, eet_rows, *_a):
+    B, N, _ = eet_rows.shape
+    return empty_meta((B, N), torch.int64), empty_meta((B, N), torch.float32)
+
+
+@walk.kernel("phase1_map", phase1_map_cost, _phase1_map_meta)
 def phase1_map(avail, eet_rows, deadline, p_dyn, pending, qfree):
     """Per task: the feasible machine of least energy, and that energy."""
     args = (avail, eet_rows, deadline, p_dyn, pending, qfree)

@@ -26,7 +26,10 @@ or raises. The shape chooses the kernel (:func:`tensor_core_route`): the
 tensor-core route (``ssd_scan_tc``: the products on ``mma.sync`` TF32,
 each float32 operand split in two, 3xTF32) where Q, N and P sit on the
 tensor cores' grain, the CUDA-core route (``ssd_scan``) elsewhere.
-``LAUNCHES`` counts each route's launches, and nothing else.
+``LAUNCHES`` counts each route's launches, and nothing else. The wrapper
+is the roofline walker's kernel scope with :func:`ssm_scan_cost`
+(whichever route); under the walker, ``meta`` inputs give empty ``meta``
+outputs.
 """
 from __future__ import annotations
 
@@ -39,11 +42,15 @@ from repro_torch.kernels.common import (
     LL,
     PTR,
     cuda_device,
+    empty_meta,
     on_cpu,
     raise_on,
     refuse_autograd,
+    rule,
     stream_ptr,
+    tensor_bytes,
 )
+from repro_torch.roofline import hw, walk
 
 #: Kernel launches since the last reset, by route (the CPU path never
 #: counts): ``ssd_scan_tc`` the tensor cores, ``ssd_scan`` the CUDA cores.
@@ -144,6 +151,59 @@ def ssd_scan_plain(x, dt, A, Bm, Cm, *, chunk: int = 128):
     return y.to(x.dtype), S
 
 
+def ssd_products(B, H, L, P, N, Q, x_dtype, b_dtype, c_dtype) -> tuple:
+    """The scan's four products and the least seconds the tensor cores
+    take for them at float32 accuracy: ``(operations, seconds, rate
+    named)``. Per (b, h) and chunk: C.B^T and W x over the causal
+    triangle (Q (Q + 1) / 2 pairs), C.S and the state update 2 Q N P
+    operations each. A float32 operand is split into two TF32 parts, so
+    a product of two float32 operands takes three TF32 passes, one whose
+    other operand is exact in TF32 (bf16, fp16) two, and one of two such
+    operands runs once on the bf16 tensor cores. W, S and B dt exp(..)
+    are float32: W x and the state update take two passes with a bf16 x,
+    C.S two with a bf16 C."""
+    n = B * H * (L // Q)
+    tri = Q * (Q + 1) // 2
+    cb, wx = 2 * n * tri * N, 2 * n * tri * P
+    cs = st = 2 * n * Q * N * P
+    exact = {name: dt in _TF32_EXACT for name, dt in
+             (("x", x_dtype), ("B", b_dtype), ("C", c_dtype))}
+
+    def passes(*ops_exact):
+        return 3 - sum(ops_exact)
+
+    if exact["B"] and exact["C"]:
+        s_cb, named = cb / hw.PEAK_FLOPS_BF16, "C.B^T at the bf16 rate"
+    else:
+        k = passes(exact["B"], exact["C"])
+        s_cb, named = k * cb / hw.PEAK_FLOPS_TF32, f"C.B^T in {k} TF32 passes"
+    kx, kc = passes(exact["x"]), passes(exact["C"])
+    secs = s_cb + (kx * (wx + st) + kc * cs) / hw.PEAK_FLOPS_TF32
+    named += (f", W x and the state update in {kx}, C.S in {kc} TF32 "
+              f"passes (495 TFLOP/s each)")
+    return cb + wx + cs + st, secs, named
+
+
+def ssm_scan_cost(x, dt, A, Bm, Cm, *, chunk: int = 128) -> dict:
+    """Every input read once, y and the final state written once; the
+    four products of :func:`ssd_products` at the rate their TF32 passes
+    give (the tensor cores' least time at float32 accuracy)."""
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
+    ops, secs, _ = ssd_products(B, H, L, P, N, chunk_of(L, chunk), x.dtype,
+                                Bm.dtype, Cm.dtype)
+    return rule(ops, tensor_bytes(x, dt, A, Bm, Cm, x) + B * H * N * P * 4,
+                ops / secs, ops)
+
+
+def _ssm_scan_meta(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    B, L, H, P = x.shape
+    chunk_of(L, chunk)
+    return empty_meta(x.shape, x.dtype), empty_meta((B, H, Bm.shape[-1], P),
+                                          torch.float32)
+
+
+@walk.kernel("ssm_scan", ssm_scan_cost, _ssm_scan_meta)
 def ssm_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
     """The chunked SSD scan as one kernel call.
 

@@ -74,6 +74,28 @@ def init_distributed(device=None, *, init_method: str | None = None,
     return dev
 
 
+def init_fake_group(world_size: int, rank: int = 0) -> None:
+    """Join a *fake* process group of ``world_size`` ranks in this one
+    process, as ``rank``: collectives return at once and move nothing,
+    which is what a dry run over a production mesh (256 or 512 ranks)
+    needs. The fake backend is PyTorch's testing module
+    (``torch.testing._internal.distributed.fake_pg``), a private API:
+    this is the one place that imports it. A group already joined
+    raises; :func:`torch.distributed.destroy_process_group` leaves it."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:      # a torch without its testing modules
+        raise RuntimeError(
+            "this torch has no fake process group "
+            "(torch.testing._internal.distributed.fake_pg): the dry run "
+            f"over a production mesh needs it ({e})") from e
+    if dist.is_initialized():
+        raise RuntimeError("a torch.distributed group is already joined; "
+                           "destroy it before joining a fake one")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+
+
 def world_size() -> int:
     """The default group's size, or 1 outside a group."""
     return dist.get_world_size() if dist.is_initialized() else 1
