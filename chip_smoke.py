@@ -18,7 +18,8 @@ edge example and training) in a process of their own, alone on the
 card; phase 8g (the sharded substrate) in another, alone; phase 8h (the
 roofline) in another, alone on the card (its dry-run cell in a CPU
 process of its own); then phases 9-20 in six processes at once on the
-same card, with 8h (d), the examples, in a seventh
+same card, with 8h (d), the examples, in a seventh and phase 8i (the
+discipline checker's walker audit) in an eighth
 (``SWEEP_GROUPS``: the flat sweep; the flat sweep observed and the
 faulted runs' parity; the paper_x8 sweeps, observed and faulted; the
 tiered_x4 sweep and the network; the workload scenarios and the flat
@@ -264,6 +265,21 @@ launch counts, and their lines arrive interleaved:
               balance_scan in the fault demo), their printouts equal to
               their CPU runs' (processes of their own, on the same
               CPU-drawn traces) line for line;
+  8i. audit   (a process of its own beside the sweeps: it counts ops,
+              launches and syncs, not times) the discipline checker's walker
+              audit (``repro_torch.analysis``, Layer 2) on the card: the
+              reference's five engine programs and the three fleet pairs
+              walked on CUDA, the fused program on the kernels; no finding
+              (flatness across F, no unmarked float64 op and no unmarked
+              host read in a full iteration, including the syncs
+              PyTorch's sync debug mode reports in a second run); kernel
+              scopes per full iteration times the iterations equal to
+              the ``LAUNCHES`` counts of each walk; iterations, ops per
+              full iteration, kernel scopes and host reads equal to a CPU
+              walk's (a CPU process of its own); the flat path (FELARE on the
+              fused kernels) at B = 1 and at B = 150 (5 rates x 30 x 2000
+              tasks, 64 iterations) with the same op multiset in every
+              full iteration;
   9. main     the flat paper-scale sweep (paper 4x4 system, rates 2-8, 30
               replicates of 2000 tasks) with ELARE, FELARE and MM on the
               fused map kernels and ELARE on the phase1_map kernel; the
@@ -5146,6 +5162,85 @@ def run_roofline(device) -> dict:
     return qwen
 
 
+# --------------------------------------------------------------------------
+# Phase 8i: the discipline checker's walker audit (beside the sweeps)
+# --------------------------------------------------------------------------
+# The flat path walked at B = 1 (24 tasks) and at B = 150 (the main path's
+# batch: 5 rates x 30 replicates of 2000 tasks) for 64 iterations.
+AUDIT_FLAT = dict(fleet="paper", heuristic="FELARE", fused=True)
+AUDIT_FLAT_BATCH = dict(rates=RATES, reps=30, n_tasks=2000, max_steps=64)
+
+
+def run_audit() -> None:
+    """Phase 8i: Layer 2 of ``repro_torch.analysis`` on the card (the
+    three checks over the five programs and the fleet pairs), against the
+    same walks on the CPU (in a process of its own, started first), and
+    the flat path at B = 1 against B = 150."""
+    from repro_torch.analysis import format_findings, load_config
+    from repro_torch.analysis import walk_audit
+
+    t0 = time.perf_counter()
+    cpu = cpu_process(["-c", "import json\n"
+                       "from repro_torch.analysis import walk_audit\n"
+                       "print(json.dumps(walk_audit.summary('cpu')))"])
+    try:
+        cfg = load_config(str(ROOT), device="cuda")
+        findings = [f for check in (
+            walk_audit.FlatnessCheck(), walk_audit.DtypeCheck(),
+            walk_audit.HostSyncAuditCheck()) for f in check.run(cfg)]
+        card = walk_audit.summary("cuda")
+        flat_params = {"B=1": AUDIT_FLAT,
+                       "B=150": {**AUDIT_FLAT, **AUDIT_FLAT_BATCH}}
+        flat = [(name, walk_audit.walk_program(params, "cuda"))
+                for name, params in flat_params.items()]
+        flat_d = {name: walk_audit.describe(w, walk_audit.sync_sites(
+            flat_params[name], "cuda")) for name, w in flat}
+        t_card = time.perf_counter() - t0
+        cpu_out = json.loads(finish(cpu, "audit: the CPU walks")
+                             .splitlines()[-1])
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+    require(not findings, "audit: findings on the card:\n"
+            + format_findings(findings))
+    for name, got in card.items():
+        want = cpu_out[name]
+        # the set-up's ops depend on what the process cached before
+        got["full"], want["full"] = got["ops"][1:-1], want["ops"][1:-1]
+        for key in ("iterations", "full", "kernels_per_iteration",
+                    "host_reads"):
+            require(got[key] == want[key],
+                    f"audit: {name}: {key} on the card {got[key]} against "
+                    f"the CPU's {want[key]}")
+        per_it = got["kernels_per_iteration"]
+        require(set(got["launches"]) <= set(per_it) and all(
+            n * got["iterations"] == got["launches"].get(k, 0)
+            for k, n in per_it.items()),
+            f"audit: {name}: kernel scopes {per_it} per iteration x "
+            f"{got['iterations']} against the launches {got['launches']}")
+    require(flat[1][1].iterations == 64,
+            f"audit: the B = 150 walk ran {flat[1][1].iterations} "
+            "iterations, not 64")
+    differ = walk_audit.compare_full_iterations(
+        walk_audit.FlatnessCheck(), flat)
+    require(not differ, "audit: the flat path's iterations depend on B:\n"
+            + format_findings(differ))
+
+    def brief(d):
+        return {"iterations": d["iterations"],
+                "ops_per_iteration": sorted(set(d["ops"][1:-1])),
+                "ops_setup_and_first": d["ops"][0], "ops_tail": d["ops"][-1],
+                **{k: d[k] for k in ("kernels_per_iteration", "launches",
+                                     "host_reads", "syncs")}}
+
+    emit("audit", findings=0,
+         programs={name: brief(d) for name, d in card.items()},
+         flat={name: brief(d) for name, d in flat_d.items()},
+         card_seconds=t_card, seconds=time.perf_counter() - t0,
+         card=nvidia_smi())
+
+
 def run_examples(device) -> dict:
     """Phase 8h (d): examples/torch_quickstart.py and
     torch_fault_tolerance.py at their default sizes on the card, each with
@@ -5207,7 +5302,7 @@ def run_examples(device) -> dict:
 
 # --------------------------------------------------------------------------
 # The sweep phases (9-20) in six processes at once (and 8h (d), the
-# examples, in a seventh)
+# examples, in a seventh; 8i, the walker audit, in an eighth)
 # --------------------------------------------------------------------------
 # The sweeps are bound by the host's launches (85-93 % of the card idle),
 # so six processes can share the one card. Each group draws its traces
@@ -5221,7 +5316,7 @@ def run_examples(device) -> dict:
 # (granite-moe-3b's decode step 843.9 ms against 78.6 ms alone on an
 # NVIDIA H100 80GB HBM3 at 700 W).
 SWEEP_GROUPS = ("fed", "fleets", "scenarios", "observe", "flat", "network",
-                "examples")
+                "examples", "audit")
 GROUPS = ("families", "sharded", "roofline") + SWEEP_GROUPS
 
 
@@ -5339,6 +5434,13 @@ def group_examples(device, args) -> dict:
     """Phase 8h (d): the two examples on the card beside the sweeps
     (host-bound like them), against their CPU runs."""
     return {"paths": {"examples": run_examples(device)}}
+
+
+def group_audit(device, args) -> dict:
+    """Phase 8i: the walker audit beside the sweeps (its launches are the
+    audit's own, held against its walks, and join no path's count)."""
+    run_audit()
+    return {"paths": {}}
 
 
 def group_fleets(device, args) -> dict:

@@ -15,8 +15,17 @@ built with ``nvcc`` at first use.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device and no explicit device they raise.
-Nothing here imports JAX.
+Nothing here imports JAX. Importing the package itself imports nothing
+else: ``resolve_device`` (which needs torch) loads on first use, so the
+AST layer of :mod:`repro_torch.analysis` runs without torch.
 """
-from repro_torch.core.device import resolve_device
 
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from repro_torch.core.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

@@ -64,7 +64,9 @@ class StudyResult:
     def completion_rate_by_type(self) -> np.ndarray:
         """(S,) per-task-type completion rates, pooled over replicates."""
         m = self.metrics
+        # repro: allow-f64[a host-side summary of the finished counts]
         c = np.asarray(m.completed_by_type, np.float64).sum(0)
+        # repro: allow-f64[the same summary]
         a = np.asarray(m.arrived_by_type, np.float64).sum(0)
         return c / np.maximum(a, 1)
 

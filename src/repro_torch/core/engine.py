@@ -550,6 +550,7 @@ def _max_admissions(arrival: torch.Tensor) -> int:
     first[:, 1:] = a[:, 1:] != a[:, :-1]
     group = first.cumsum(1) - 1 + n * torch.arange(
         B, device=a.device)[:, None]
+    # repro: allow-sync[once per simulation, in the set-up]
     return int(torch.bincount(group.flatten(), minlength=B * n).max())
 
 
@@ -861,6 +862,7 @@ def _stage_start(st: SimState, trace: Trace, sysarr: SystemArrays,
 
 def _fma(a, b, c):
     """``a * b + c`` with one float32 rounding."""
+    # repro: allow-f64[the product is exact in float64: one rounding]
     return (a.double() * b.double() + c.double()).to(torch.float32)
 
 
@@ -968,6 +970,7 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
                 halted = g if halted is None else halted | g
             t = _next_event_time(st, trace, halted, wake_ts)
             active = torch.isfinite(t) & (st.steps < cap)
+            # repro: allow-sync[the periodic check, every CHECK_EVERY events]
             if it % CHECK_EVERY == 0 and not bool(active.any()):
                 break
             new = st._replace(now=torch.maximum(t, st.now))

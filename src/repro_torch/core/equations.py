@@ -49,9 +49,11 @@ def seq_dot(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
     acc)``, as :func:`seq_sumsq` forms it: XLA's CPU code contracts the
     products of a fused multiply-reduce the same way. ``a`` and ``b``
     broadcast."""
+    # repro: allow-f64[a product of float32s is exact in float64]
     prod = (a.double() * b.double()).movedim(dim, -1)
-    acc = prod[..., 0].to(F32)
+    acc = prod[..., 0].to(F32)  # repro: allow-f64[the first term, rounded]
     for i in range(1, prod.shape[-1]):
+        # repro: allow-f64[the fused multiply-add's sum, rounded once]
         acc = (prod[..., i] + acc.double()).to(F32)
     return acc
 
@@ -62,9 +64,11 @@ def seq_sumsq(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     reduction contracts the square into the accumulation. Each term is
     formed in float64, where ``x_i * x_i`` of a float32 is exact, and
     rounded once to float32."""
+    # repro: allow-f64[the square of a float32 is exact in float64]
     x = x.movedim(dim, -1).double()
-    acc = torch.zeros_like(x[..., 0], dtype=F32)
+    acc = torch.zeros_like(x[..., 0], dtype=F32)  # repro: allow-f64[a view]
     for i in range(x.shape[-1]):
+        # repro: allow-f64[the fused multiply-add's sum, rounded once]
         acc = (x[..., i] * x[..., i] + acc.double()).to(F32)
     return acc
 
@@ -97,7 +101,7 @@ def cumsum32(x) -> np.ndarray:
 def _fma32(a, b, c) -> np.ndarray:
     """float32 ``a * b + c`` with one rounding (the product is exact in
     float64)."""
-    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)  # repro: allow-f64[host-side trace synthesis]
             + np.asarray(c, np.float64)).astype(np.float32)
 
 
@@ -132,6 +136,7 @@ def exact_sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root on every device (float64
     sqrt then one rounding; PyTorch's vectorized CPU float32 sqrt is not
     always correctly rounded)."""
+    # repro: allow-f64[float64 sqrt rounded once is the correctly rounded one]
     return torch.sqrt(x.double()).to(F32)
 
 
@@ -178,6 +183,7 @@ def fairness_limit(completion_rates, fairness_factor):
     if math.frexp(f)[0] == 0.5:
         eps = mu - f * sigma
     else:
+        # repro: allow-f64[mu - f * sigma rounded once, as XLA's FMA]
         eps = (mu.double() - f * sigma.double()).to(F32)
     return torch.clamp(eps, min=0.0)
 

@@ -25,6 +25,9 @@ outputs of the kernel's shapes; with no walker active it raises on
 **Live bytes.** The walker tracks the storages the ops allocate while it
 is active, from their first op until they are freed, and keeps the
 peak: ``peak_bytes`` is what the function needed beyond its arguments.
+A walker made with ``track_bytes=False`` tracks nothing (``peak_bytes``
+stays 0) and walks more than twice as fast: the discipline checks read
+ops, not memory.
 
 **Findings.** An op that raises (a host read of a ``meta`` tensor, such
 as ``.item()``, ``bool(t)`` or ``nonzero``, the data-dependent ops that
@@ -124,10 +127,11 @@ class Walker(TorchDispatchMode):
     cost: dict, path) once per outermost kernel scope.
     """
 
-    def __init__(self, visit=None, kernel_visit=None):
+    def __init__(self, visit=None, kernel_visit=None, track_bytes=True):
         super().__init__()
         self.visit = visit
         self.kernel_visit = kernel_visit
+        self.track_bytes = track_bytes
         self.path: list[str] = []
         self.kernel_depth = 0
         self.findings: list[Finding] = []
@@ -186,7 +190,8 @@ class Walker(TorchDispatchMode):
                                          tuple(self.path),
                                          f"{type(e).__name__}: {e}"[:300]))
             raise
-        self._track(args, kwargs, out)
+        if self.track_bytes:
+            self._track(args, kwargs, out)
         if self.kernel_depth == 0 and self.visit is not None:
             self.visit(Op(func, args, kwargs, out, tuple(self.path)))
         return out
@@ -235,6 +240,10 @@ def _meta_key(func, args, kwargs):
     op or an argument does not qualify."""
     if not _functional(func):
         return None
+    first = args[0] if args else None
+    if isinstance(first, torch.Tensor) and (
+            type(first) is not torch.Tensor or first.device.type != "meta"):
+        return None         # the common case off ``meta``, without a flatten
     leaves, spec = tree_flatten((args, kwargs))
     key = [func, spec.num_leaves]
     for x in leaves:
