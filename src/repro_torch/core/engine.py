@@ -75,12 +75,13 @@ carries no transfer fields and the loop issues not one op more.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core import dispatch, fairness, faults, observe
+from repro_torch.core import dispatch, fairness, faults, observe, spans
 from repro_torch.core import network as net_mod
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dispatch.base import site_minima
@@ -119,9 +120,18 @@ CHECK_EVERY = 32
 #: the reference's compiled code does (:func:`_killed_energy`).
 SEQ_SUM_MAX = 8
 
-#: Batched loop iterations run since the last reset. Each iteration calls
-#: the map stage's policy once for the whole batch.
-COUNTS = {"loop_iterations": 0}
+#: Always-on counters since the last reset. ``loop_iterations``: batched
+#: loop iterations run (each calls the map stage's policy once for the
+#: whole batch). ``checks``: periodic checks run; ``check_wait_ns``: the
+#: host's ns blocked in them. ``issue_ns``: the host's ns from the end of
+#: a check to the end of its iteration, over ``issue_iters`` such check
+#: iterations; the check has just emptied the launch queue, so this is
+#: the host's own time to issue an iteration. A loop's first iteration
+#: is left out of these two: in a fresh process it also loads each
+#: kernel it launches first, hundreds of ms on the card. The loop looks
+#: the dict up at each update, so a caller may swap it.
+COUNTS = {"loop_iterations": 0, "checks": 0, "check_wait_ns": 0,
+          "issue_ns": 0, "issue_iters": 0}
 
 
 def _count_by_type(counts, task_type, mask):
@@ -935,7 +945,12 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
     if getattr(network, "kind", None) == "none":
         network = None
 
-    def run(trace: Trace):
+    def run(trace: Trace, *, metrics: bool = False):
+        """``(final state, aux)``; with ``metrics``, its :class:`Metrics`
+        third, made inside the ``engine.finish`` span."""
+        rec = spans.current()
+        if rec is not None:
+            rec.open("engine.setup")
         n = trace.arrival.shape[1]
         cap = max_steps if max_steps is not None else 8 * n + 64
         # the two forms of the types, made once: int32 for the kernels,
@@ -962,27 +977,54 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
                                          sysarr)
                     for ob in observers}
 
+        if rec is not None:
+            rec.close()
+            rec.start_chain(trace.arrival.device)
         it = 0
         while True:
+            if rec is not None:
+                rec.begin_iter(COUNTS["loop_iterations"])
             halted = None
             for ob in gaters:
                 g = ob.halted(aux[ob.name], st)
                 halted = g if halted is None else halted | g
             t = _next_event_time(st, trace, halted, wake_ts)
             active = torch.isfinite(t) & (st.steps < cap)
-            # repro: allow-sync[the periodic check, every CHECK_EVERY events]
-            if it % CHECK_EVERY == 0 and not bool(active.any()):
-                break
+            t_w = None
+            if it % CHECK_EVERY == 0:
+                # repro: allow-host[the always-on counters time the check]
+                t_c = time.perf_counter_ns()
+                if rec is not None:
+                    rec.switch("engine.check", t_c)
+                # repro: allow-sync[the periodic check, every CHECK_EVERY events]
+                done = not bool(active.any())
+                # repro: allow-host[the always-on counters time the check]
+                t_w = time.perf_counter_ns()
+                COUNTS["checks"] += 1
+                COUNTS["check_wait_ns"] += t_w - t_c
+                # repro: allow-sync[the check's answer, already on the host]
+                if done:
+                    if rec is not None:
+                        rec.drop_iter(t_w)
+                    break
+            if rec is not None:
+                rec.switch("engine.finalize", t_w)
             new = st._replace(now=torch.maximum(t, st.now))
             new = _stage_finalize(new, trace, sysarr)
             new_aux = notify("finalize", aux, new)
+            if rec is not None:
+                rec.switch("engine.admit")
             new = _stage_admit(new, trace, halted)
             new_aux = notify("admit", new_aux, new)
             eet_h = None
             if h is not None:
+                if rec is not None:
+                    rec.switch("engine.faults")
                 new = _stage_faults(new, trace, sysarr, h)
                 new_aux = notify("faults", new_aux, new)
                 eet_h = _health_eet(sysarr, new)
+            if rec is not None:
+                rec.switch("engine.dispatch")
             if fold is not None or net is not None:
                 new = _stage_dispatch(new, trace, sysarr, dispatcher, fold,
                                       fairness_factor, max_new, eet_h, net)
@@ -990,18 +1032,39 @@ def _make_loop(select_fn: Callable, sysarr: SystemArrays, *,
                 # the flat dispatch: orphans go back to site 0
                 new = new._replace(site=new.site.clamp(min=0))
             new_aux = notify("dispatch", new_aux, new)
+            if rec is not None:
+                rec.switch("engine.map")
             new = _stage_map(new, trace, sysarr, select_fn, fairness_factor,
                              S, fold, rows, types32, eet_h, backup_k)
             new_aux = notify("map", new_aux, new)
+            if rec is not None:
+                rec.switch("engine.start")
             new = _stage_start(new, trace, sysarr, h is not None)
             new_aux = notify("start", new_aux, new)
+            if rec is not None:
+                rec.switch("engine.freeze")
             new = new._replace(steps=new.steps + 1)
             st = _freeze(active, new, st)
             aux = _freeze_aux(active, new_aux, aux)
+            t_end = None
+            if t_w is not None and it > 0:
+                # repro: allow-host[the always-on counters time the issue]
+                t_end = time.perf_counter_ns()
+                COUNTS["issue_ns"] += t_end - t_w
+                COUNTS["issue_iters"] += 1
+            if rec is not None:
+                rec.end_iter(t_end)
             it += 1
             COUNTS["loop_iterations"] += 1
-        return st, {ob.name: ob.finalize(aux[ob.name], st)
-                    for ob in observers}
+        if rec is not None:
+            rec.open("engine.finish")
+        out = st, {ob.name: ob.finalize(aux[ob.name], st)
+                   for ob in observers}
+        if metrics:
+            out += (_metrics(st, sysarr),)
+        if rec is not None:
+            rec.close()
+        return out
 
     return run
 
@@ -1050,8 +1113,7 @@ def make_simulator(select_fn: Callable, sysarr: SystemArrays, *,
                      tier_of_site=tier_of_site)
 
     def simulate(trace: Trace):
-        st, aux = run(trace)
-        metrics = _metrics(st, sysarr)
+        _, aux, metrics = run(trace, metrics=True)
         return (metrics, aux) if observers else metrics
 
     return simulate

@@ -13,7 +13,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import engine, observe
+from repro_torch.core import engine, observe, spans
 from repro_torch.core.device import resolve_device
 from repro_torch.core.types import SystemSpec, Trace
 from repro_torch.distributed import sharding
@@ -55,13 +55,23 @@ def simulate_sweep(traces: Trace, system: SystemSpec, heuristic_names, *,
         for name in heuristic_names:
             t0 = time.perf_counter()
             it0 = engine.COUNTS["loop_iterations"]
-            out = engine.simulate_batch(
-                traces, system, name, observers=observers,
-                max_steps=max_steps, dispatcher=dispatcher,
-                dynamics=dynamics, network=network,
-                use_fused_map=use_fused_map,
-                use_fused_phase1=use_fused_phase1, device=dev)
-            per_h.append(observe.tree_map(lambda x: x.cpu().numpy(), out))
+            with spans.span("sweep.simulate", heuristic=name):
+                out = engine.simulate_batch(
+                    traces, system, name, observers=observers,
+                    max_steps=max_steps, dispatcher=dispatcher,
+                    dynamics=dynamics, network=network,
+                    use_fused_map=use_fused_map,
+                    use_fused_phase1=use_fused_phase1, device=dev)
+                rec = spans.current()
+                if rec is not None and dev.type == "cuda":
+                    # so that sweep.to_host holds the copy alone
+                    with rec.span("sweep.drain"):
+                        torch.cuda.synchronize(dev)
+                with spans.span("sweep.to_host"):
+                    per_h.append(observe.tree_map(
+                        lambda x: x.cpu().numpy(), out))
+                if rec is not None:
+                    rec.resolve()
             if run_info is not None:
                 run_info[name] = {
                     "seconds": time.perf_counter() - t0,
@@ -118,7 +128,11 @@ def run_sweep(spec: SweepSpec, *, traces: Trace | None = None,
     bit-identical to the unsharded sweep, and with one device it is the
     plain path, so a spec stays reproducible whatever the topology.
     """
-    dev = resolve_device(device)
+    with spans.span("sweep"):
+        return _run_sweep(spec, traces, resolve_device(device), shard)
+
+
+def _run_sweep(spec, traces, dev, shard) -> SweepResult:
     system = spec.resolve_system()
     R, K = len(spec.rates), spec.reps
     if traces is None:
@@ -146,7 +160,8 @@ def run_sweep(spec: SweepSpec, *, traces: Trace | None = None,
         out = _simulate_sharded(flat, devices, **kw)
     metrics, aux = out if observers else (out, {})
     H = len(spec.heuristics)
-    metrics, aux = observe.tree_map(
-        lambda x: x.reshape((H, R, K) + x.shape[2:]), (metrics, aux))
-    return SweepResult.from_metrics(spec, system, metrics, aux=aux,
-                                    device=str(dev), run_info=run_info)
+    with spans.span("sweep.wrap"):
+        metrics, aux = observe.tree_map(
+            lambda x: x.reshape((H, R, K) + x.shape[2:]), (metrics, aux))
+        return SweepResult.from_metrics(spec, system, metrics, aux=aux,
+                                        device=str(dev), run_info=run_info)

@@ -19,17 +19,27 @@ machine-failure process (``--list-dynamics``), ``--network`` an
 edge-cloud transfer-cost model (``--list-networks``; ``--list-fleets``
 shows each fleet's tiers). ``--observers`` attaches engine observers
 (``--list-observers``), whose results are written as ``observers.json``
-and, for ``timeline``, ``timeline.csv``.
+and, for ``timeline``, ``timeline.csv``. ``--spans PATH`` records the
+sweep's spans (:mod:`repro_torch.core.spans`), writes them to PATH as
+JSON lines and prints each loop stage's host and card ms per iteration.
 Unknown names and bad grids exit with an ``error:`` line and status 2.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
 from repro_torch import scenarios
-from repro_torch.core import dispatch, faults, network, observe, policy
+from repro_torch.core import (
+    dispatch,
+    faults,
+    network,
+    observe,
+    policy,
+    spans,
+)
 from repro_torch.core.device import resolve_device
 from repro_torch.distributed import sharding
 from repro_torch.experiments.results import SweepResult
@@ -126,6 +136,11 @@ def build_spec(argv=None) -> tuple[SweepSpec, argparse.Namespace]:
                          "PyTorch versions on the CPU)")
     ap.add_argument("--out", default="artifacts/sweep_torch",
                     help="artifact directory (default: artifacts/sweep_torch)")
+    ap.add_argument("--spans", default=None, metavar="PATH",
+                    help="record the sweep's spans (core/spans.py: the "
+                         "sweep's layers and each stage of the event loop, "
+                         "with its card time on CUDA), write them to PATH "
+                         "as JSON lines and print the per-stage table")
     args = ap.parse_args(argv)
 
     if args.list:
@@ -320,12 +335,19 @@ def main(argv=None) -> SweepResult:
           f"{shard_note}",
           flush=True)
     t0 = time.perf_counter()
-    result = run_sweep(spec, device=args.device, shard=args.shard)
+    with (spans.recording() if args.spans
+          else contextlib.nullcontext()) as rec:
+        result = run_sweep(spec, device=args.device, shard=args.shard)
     dt = time.perf_counter() - t0
     print(f"simulated {n} traces in {dt:.1f}s\n")
     print_summary(result)
     paths = result.save(args.out)
     print("\nwrote " + ", ".join(str(p) for p in paths.values()))
+    if rec is not None:
+        spans.write_jsonl(rec, args.spans)
+        table = spans.stage_table(rec.spans)
+        print("\n" + spans.format_stage_table(table))
+        print(f"wrote {len(rec.spans)} spans to {args.spans}")
     return result
 
 
